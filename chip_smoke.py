@@ -3,25 +3,40 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
-(``gs2d_torch.render.renderer.render``) on the card:
+(``gs2d_torch.render.renderer.render``) and the training step
+(``gs2d_torch.train.step.make_train_step``) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every kernel, compiled together, with the build seconds;
-3. small scenes (seeded): each kernel against its plain PyTorch version
-   on the card — all 15 channels within rtol/atol 2e-4, the median slot
-   equal on >= 99.9% of pixels — the render against the plain oracle
-   rasterizer at the same bar, and the JAX package's golden render
-   (tests/golden) at 5e-4;
-4. full width: the 1M-splat trained-like scene at SH degree 3, 1920x1080,
-   rendered from several views of an orbit around the benchmark camera.
-   Outputs must be finite with real alpha coverage, the launch counts must
-   show every kernel on every view, and sampled tiles must agree with the
-   plain version at 2e-4. Per view: pairs, stage times (CUDA events) and
+2. build: every kernel, compiled together, with the build seconds and
+   each kernel's registers, shared memory and spills;
+3. small scenes (seeded), render path: K1 (rasterize_fwd) against its
+   plain PyTorch version on the card — all 15 channels within rtol/atol
+   2e-4, the median slot equal on >= 99.9% of pixels — the render against
+   the plain oracle rasterizer at the same bar, and the JAX package's
+   golden render (tests/golden) at 5e-4;
+4. small scenes, training: K2 (rasterize_bwd) against its plain version on
+   every slot under a seeded cotangent, and per-Gaussian gradients through
+   render on the card against the same on CPU tensors, at the gradient
+   bar (rtol 1e-3 / atol 5e-4 on values normalised by each field's largest
+   magnitude); a 30-step overfit of a tiny scene on the card;
+5. full width, render path: the 1M-splat trained-like scene at SH degree
+   3, 1920x1080, rendered from several views of an orbit around the
+   benchmark camera. Outputs must be finite with real alpha coverage, K1
+   must run once per view, and sampled tiles and all of view 0 must agree
+   with the plain version. Per view: pairs, stage times (CUDA events) and
    peak memory;
-5. one ``{"kernels": [...]}`` line: per kernel its launches on the main
-   path, error, time, plain-version time and the bound computed from this
+6. full width, training: one warm-up and TRAIN_STEPS timed steps of
+   ``train_step`` at the bench.py train-step point (view 0, lambda_dist
+   10, depth_ratio 1, iteration 8000, ground truth from default_rng(1)).
+   K1 and K2 must run once per step, every gradient, parameter and
+   statistic must be finite and ``denom`` must grow on exactly the visible
+   Gaussians. Per step: step and stage times (CUDA events), loss terms and
+   peak memory; one profiled step; two backward passes bit-identical; K2
+   against its plain version on sampled tiles and all of view 0;
+7. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+   paths, error, time, plain-version time and the bound computed from this
    run's inputs (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32);
-6. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
+8. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed; so does a
 machine without CUDA or a directory without the gs2d_torch package.
@@ -50,6 +65,18 @@ FP32_OPS_PER_S = 67e12             # H100 SXM, FP32 off the tensor cores
 # intersection and footprint test before any early skip (a composited
 # record costs ~70 with its accumulations).
 OPS_PER_EVAL = 40
+# The same count for rasterize_bwd.cu, which evaluates the same pairs (up
+# to each pixel's n_contrib) with the same test; a composited pair costs
+# ~150 more for its gradient chain and 22 warp-reduced sums, which the
+# bound leaves out (the outputs do not say how many pairs composited).
+OPS_PER_EVAL_BWD = 40
+GRAD_RTOL, GRAD_ATOL = 1e-3, 5e-4  # tests/test_rasterize_bwd.py:50-57
+DFLD = {"A": slice(0, 3), "B": slice(3, 6), "C": slice(6, 9),
+        "c2": slice(9, 12), "opacity": slice(12, 13), "rgb": slice(13, 16),
+        "normal": slice(16, 19), "noise": slice(19, 22)}  # common.py
+TRAIN_ITER = 8000                  # bench.py: every loss term live
+TRAIN_STEPS = 5
+KERNEL_REPS = 20
 
 
 def card_line() -> str:
@@ -88,7 +115,8 @@ def random_cloud(n, seed, spread=1.0, scale_lo=0.02, scale_hi=0.25,
     return means, scales, quats, opac, rgb, noise
 
 
-def lookat(width, height, theta_deg=0.0, dist=4.0, fov_deg=60.0):
+def lookat(width, height, theta_deg=0.0, dist=4.0, fov_deg=60.0,
+           device="cuda"):
     """Camera at distance ``dist`` from the origin, looking at it, orbited
     by ``theta_deg`` about the world y axis."""
     import numpy as np
@@ -100,7 +128,43 @@ def lookat(width, height, theta_deg=0.0, dist=4.0, fov_deg=60.0):
     fovx = math.radians(fov_deg)
     fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
     return make_camera(R, np.array([0.0, 0.0, dist]), fovx, fovy, width,
-                       height, device="cuda")
+                       height, device=device)
+
+
+def small_scene_list():
+    """The seeded small scenes: (name, width, height, cloud)."""
+    import numpy as np
+    n = 16                                 # every splat behind the camera
+    culled = (np.tile(np.float32([0, 0, -50]), (n, 1)),
+              np.full((n, 2), 0.1, np.float32),
+              np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
+              np.full(n, 0.9, np.float32), np.full((n, 3), 0.5, np.float32),
+              np.zeros((n, 3), np.float32))
+    return [("2k_256x128", 256, 128, random_cloud(2000, 0)),
+            ("occlusion_128x64", 128, 64, random_cloud(
+                300, 7, spread=0.3, scale_lo=0.2, scale_hi=0.5,
+                opaque=0.99)),
+            ("all_culled_64x32", 64, 32, culled)]
+
+
+def cloud_state(cloud, device):
+    """A random cloud → (GaussianState at SH degree 3, noise (N, 3))."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.models.gaussians import GaussianParams, GaussianState
+    from gs2d_torch.ops.sh import rgb_to_sh
+    means, scales, quats, opac, rgb, noise = cloud
+    n = means.shape[0]
+    dev = lambda x: torch.as_tensor(np.ascontiguousarray(x),  # noqa: E731
+                                    dtype=torch.float32, device=device)
+    params = GaussianParams(
+        xyz=dev(means), features_dc=dev(rgb_to_sh(rgb)[:, None, :]),
+        features_rest=torch.zeros((n, 15, 3), device=device),
+        scaling=dev(np.log(scales)), rotation=dev(quats),
+        opacity=dev(np.log(opac / (1 - opac))[:, None]))
+    return GaussianState(params=params, active_sh_degree=SH_DEGREE), \
+        dev(noise)
 
 
 def compare_tiles(got, ref, what):
@@ -129,45 +193,20 @@ def small_scenes(report):
     import numpy as np
     import torch
 
-    from gs2d_torch.models.gaussians import GaussianParams, GaussianState
     from gs2d_torch.ops.rasterize.api import pack_entries, rasterize, untile
     from gs2d_torch.ops.rasterize.binning import bin_gaussians
     from gs2d_torch.ops.rasterize.kernel_fwd import (rasterize_fwd,
                                                      rasterize_fwd_reference)
     from gs2d_torch.ops.rasterize.oracle import rasterize_oracle
     from gs2d_torch.ops.rasterize.preprocess import preprocess
-    from gs2d_torch.ops.sh import rgb_to_sh
     from gs2d_torch.render.renderer import prepare, render
 
-    scenes = {
-        "2k_256x128": (256, 128, random_cloud(2000, 0)),
-        "occlusion_128x64": (128, 64, random_cloud(
-            300, 7, spread=0.3, scale_lo=0.2, scale_hi=0.5, opaque=0.99)),
-        "all_culled_64x32": (64, 32, None),
-    }
     err = 0.0
-    for name, (w, h, cloud) in scenes.items():
-        if cloud is None:                  # every splat behind the camera
-            n = 16
-            cloud = (np.tile(np.float32([0, 0, -50]), (n, 1)),
-                     np.full((n, 2), 0.1, np.float32),
-                     np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
-                     np.full(n, 0.9, np.float32),
-                     np.full((n, 3), 0.5, np.float32),
-                     np.zeros((n, 3), np.float32))
-        means, scales, quats, opac, rgb, noise = cloud
-        n = means.shape[0]
-        dev = lambda x: torch.as_tensor(np.ascontiguousarray(x),  # noqa: E731
-                                        device="cuda")
-        params = GaussianParams(
-            xyz=dev(means), features_dc=dev(rgb_to_sh(rgb)[:, None, :]),
-            features_rest=torch.zeros((n, 15, 3), device="cuda"),
-            scaling=dev(np.log(scales)), rotation=dev(quats),
-            opacity=dev(np.log(opac / (1 - opac))[:, None]))
-        state = GaussianState(params=params, active_sh_degree=SH_DEGREE)
+    for name, w, h, cloud in small_scene_list():
+        state, noise = cloud_state(cloud, "cuda")
         cam = lookat(w, h)
         bg = torch.zeros(3, device="cuda")
-        pre = prepare(cam, state, noise=dev(noise))
+        pre = prepare(cam, state, noise=noise)
         bins = bin_gaussians(pre.center2d, pre.extent, pre.depth,
                              pre.visible, w, h)
         args = (pack_entries(pre), bins.gid, bins.tile_start,
@@ -181,7 +220,7 @@ def small_scenes(report):
                                            or got[0].abs().max() != 0):
             raise AssertionError("all-culled scene rendered something")
         # end to end: the render against the binning-free oracle
-        out = render(cam, state, bg, noise=dev(noise))
+        out = render(cam, state, bg, noise=noise)
         orc = rasterize_oracle(pre, w, h)
         alpha_err = (out["rend_alpha"][0] - orc[4]).abs().max().item()
         rgb_err = (out["render"] - orc[0:3]).abs().max().item()
@@ -220,22 +259,20 @@ def small_scenes(report):
     return err
 
 
-def profile_render(cam, state, bg):
-    """One render() under torch.profiler: host wall time, the device time
-    of everything the card ran (kernels, copies, fills; one stream, so
-    they do not overlap) and the top entries by device time. Device
+def profile_call(fn, top=6):
+    """One call of ``fn`` under torch.profiler: host wall time, the device
+    time of everything the card ran (kernels, copies, fills; one stream,
+    so they do not overlap) and the top entries by device time. Device
     fields are None if the trace holds no device events (no CUPTI)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gs2d_torch.render.renderer import render
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render(cam, state, bg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -244,24 +281,21 @@ def profile_render(cam, state, bg):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy_ms if by_name else None,
             "device_idle_share": 1 - busy_ms / wall_ms if by_name else None,
             "top_device_ms": {k[:70]: v for k, v in top}}
 
 
-def full_width(report):
-    """Phase 4: the 1M-splat scene at 1080p through render()."""
+def bench_state():
+    """The 1M-splat trained-like scene at SH degree 3 (bench.py), with
+    seeded SH rest coefficients, on the card."""
     import numpy as np
     import torch
 
     from gs2d_torch.models.gaussians import GaussianParams, GaussianState
-    from gs2d_torch.ops.rasterize import kernel_fwd
-    from gs2d_torch.ops.rasterize.api import pack_entries, untile
-    from gs2d_torch.ops.rasterize.binning import bin_gaussians
     from gs2d_torch.ops.sh import rgb_to_sh
-    from gs2d_torch.render.renderer import bridge, prepare, render
     from gs2d_torch.utils.bench_scenes import make_trained_like_scene
 
     t0 = time.time()
@@ -276,19 +310,36 @@ def full_width(report):
         features_rest=dev(rest), scaling=dev(np.log(scales)),
         rotation=dev(quats), opacity=dev(np.log(opac / (1 - opac))[:, None])),
         active_sh_degree=SH_DEGREE)
-    bg = torch.zeros(3, device="cuda")
-    # the benchmark camera (bench.py: 70 degree fovx, 3 units from the
-    # origin), orbited about the world y axis
-    cams = [lookat(WIDTH, HEIGHT, th, dist=3.0, fov_deg=70.0)
-            for th in VIEW_DEGREES]
     print(f"full width: scene of {N_SPLATS} splats built in "
           f"{time.time() - t0:.1f} s", flush=True)
+    return state
+
+
+def bench_camera(theta_deg=0.0):
+    """The benchmark camera (bench.py: 70 degree fovx, 3 units from the
+    origin), orbited by ``theta_deg`` about the world y axis."""
+    return lookat(WIDTH, HEIGHT, theta_deg, dist=3.0, fov_deg=70.0)
+
+
+def full_width(report, state):
+    """Phase 5: the 1M-splat scene at 1080p through render()."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.ops.rasterize.api import pack_entries, untile
+    from gs2d_torch.ops.rasterize.binning import bin_gaussians
+    from gs2d_torch.render.renderer import bridge, prepare, render
+
+    bg = torch.zeros(3, device="cuda")
+    cams = [bench_camera(th) for th in VIEW_DEGREES]
 
     with torch.no_grad():
         render(cams[0], state, bg)                       # warm-up
         torch.cuda.synchronize()
         # --- the main path: counts from zero, views through render() ----
         kernel_fwd.rasterize_fwd.launches = 0
+        kernel_bwd.rasterize_bwd.launches = 0
         outs = []
         for cam in cams:
             torch.cuda.reset_peak_memory_stats()
@@ -296,10 +347,11 @@ def full_width(report):
             outs[-1]["total_ms"] = total
             outs[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         launches = kernel_fwd.rasterize_fwd.launches
-        if launches != len(cams):
+        if launches != len(cams) or kernel_bwd.rasterize_bwd.launches:
             raise AssertionError(f"rasterize_fwd launched {launches} times "
-                                 f"for {len(cams)} views")
-        report["launches"] = launches
+                                 f"for {len(cams)} views, rasterize_bwd "
+                                 f"{kernel_bwd.rasterize_bwd.launches}")
+        report["launches_by_path"] = {"render": launches}
 
         # --- checks and per-stage times, view by view ---------------------
         err, n_eval, inputs0 = 0.0, 0, None
@@ -376,8 +428,8 @@ def full_width(report):
                 f" of pixels agree with the plain version at {TOL}")
 
         # --- one traced render of view 0: device busy share, top kernels ---
-        print("profile " + json.dumps(profile_render(cams[0], state, bg)),
-              flush=True)
+        print("profile " + json.dumps(profile_call(
+            lambda: render(cams[0], state, bg))), flush=True)
 
         # --- bound from this run's inputs (view 0) -------------------------
         packed, gid, ts, tc = inputs0[:4]
@@ -394,6 +446,376 @@ def full_width(report):
             "gathered_bytes": gid.numel() * (packed.shape[1] * 4 + 4),
             "gathered_ms": gid.numel() * (packed.shape[1] * 4 + 4)
             / HBM_BYTES_PER_S * 1e3}
+
+
+def grad_err(got, ref, what):
+    """The gradient bar (tests/test_rasterize_bwd.py:50-57): rtol 1e-3 /
+    atol 5e-4 on values normalised by the reference's largest magnitude.
+    Raises if it fails; returns (max abs err, max normalised err)."""
+    import torch
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: not finite")
+    if got.numel() == 0:
+        return 0.0, 0.0
+    scale = ref.abs().max().clamp(min=1e-6)
+    a, b = got / scale, ref / scale
+    if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+        bad = (a - b).abs() > GRAD_ATOL + GRAD_RTOL * b.abs()
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {bad.numel()} values off the "
+            f"gradient bar (max normalised err "
+            f"{(a - b).abs().max().item():.3g})")
+    return (got - ref).abs().max().item(), (a - b).abs().max().item()
+
+
+def slot_rows_err(got, ref, what):
+    """K2's (P, 22) rows against the plain version's, field by field."""
+    errs = [grad_err(got[:, sl], ref[:, sl], f"{what} {name}")
+            for name, sl in DFLD.items()]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def k2_inputs(cam, state, noise, cot_seed):
+    """K1's inputs and outputs for a view plus a seeded 15-channel
+    cotangent: the arguments of rasterize_bwd."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.ops.rasterize.api import pack_entries
+    from gs2d_torch.ops.rasterize.binning import bin_gaussians
+    from gs2d_torch.ops.rasterize.kernel_fwd import rasterize_fwd
+    from gs2d_torch.render.renderer import prepare
+
+    with torch.no_grad():
+        pre = prepare(cam, state, noise=noise)
+        bins = bin_gaussians(pre.center2d, pre.extent, pre.depth,
+                             pre.visible, cam.width, cam.height)
+        fargs = (pack_entries(pre), bins.gid, bins.tile_start,
+                 bins.tile_count)
+        out, med, nc = rasterize_fwd(*fargs, cam.width, cam.height)
+    cot = torch.as_tensor(np.random.default_rng(cot_seed).normal(
+        size=tuple(out.shape)).astype(np.float32), device=out.device)
+    return fargs + (out, cot, med, nc, cam.width, cam.height)
+
+
+def render_grads(cam, state, noise, seed):
+    """Per-Gaussian gradients through render (prepare → rasterize →
+    bridge, as render() composes them) of a seeded linear loss of the 15
+    raster channels, the image and the surface depth: (names, grads)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gs2d_torch.models.gaussians import GaussianParams
+    from gs2d_torch.ops.rasterize.api import rasterize
+    from gs2d_torch.render.renderer import bridge, prepare
+    from gs2d_torch.train.optim import FIELDS
+
+    dev = state.params.xyz.device
+    leaves = {f: getattr(state.params, f).detach().clone().requires_grad_()
+              for f in FIELDS}
+    leaves["noise"] = noise.detach().clone().requires_grad_()
+    leaves["screen_offsets"] = torch.zeros(
+        (noise.shape[0], 2), device=dev, requires_grad=True)
+    st = dataclasses.replace(state, params=GaussianParams(
+        **{f: leaves[f] for f in FIELDS}))
+    pre = prepare(cam, st, noise=leaves["noise"],
+                  screen_offsets=leaves["screen_offsets"])
+    out, aux = rasterize(pre, cam.width, cam.height)
+    pkg = bridge(cam, pre, out, aux, torch.zeros(3, device=dev), 1.0)
+    rng = np.random.default_rng(seed)
+
+    def cot(x):
+        return torch.as_tensor(rng.normal(size=tuple(x.shape)).astype(
+            np.float32), device=dev)
+
+    loss = (cot(out) * out).sum() + (cot(pkg["render"]) * pkg["render"]) \
+        .sum() + (cot(pkg["surf_depth"]) * pkg["surf_depth"]).sum()
+    return list(leaves), torch.autograd.grad(loss, list(leaves.values()))
+
+
+def overfit():
+    """30 steps of train_step on a tiny scene, in the shape of
+    tests/test_train_smoke.py: the render of a "true" Gaussian set is the
+    target, the learner starts from jittered points, on the card.
+    → losses."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.config import OptimizationParams
+    from gs2d_torch.models.gaussians import GaussianParams, GaussianState
+    from gs2d_torch.ops.sh import rgb_to_sh
+    from gs2d_torch.render.renderer import render
+    from gs2d_torch.train.optim import init_adam
+    from gs2d_torch.train.step import TrainState, make_train_step
+
+    means, scales, quats, opac, rgb, _ = random_cloud(
+        30, 5, spread=0.8, scale_lo=0.1, scale_hi=0.3)
+    n = means.shape[0]
+    dev = lambda x: torch.as_tensor(np.ascontiguousarray(x),  # noqa: E731
+                                    dtype=torch.float32, device="cuda")
+
+    def state(xyz, colors, rot, logit):
+        return GaussianState(params=GaussianParams(
+            xyz=dev(xyz), features_dc=dev(rgb_to_sh(colors)[:, None, :]),
+            features_rest=torch.zeros((n, 15, 3), device="cuda"),
+            scaling=dev(np.log(scales)), rotation=dev(rot),
+            opacity=dev(logit)), active_sh_degree=0)
+
+    cam = lookat(64, 32)
+    bg = torch.zeros(3, device="cuda")
+    logit = np.log(opac / (1 - opac))[:, None]
+    with torch.no_grad():
+        gt = render(cam, state(means, rgb, quats, logit), bg)["render"]
+    jitter = np.random.default_rng(7).normal(scale=0.05, size=means.shape)
+    learner = state(means + jitter, rgb * 0.5 + 0.25,
+                    np.random.default_rng(1).random((n, 4)),
+                    np.full((n, 1), np.log(0.1 / 0.9)))
+    step = make_train_step(OptimizationParams(position_lr_init=0.002,
+                                              position_lr_final=0.0002),
+                           max_sh_degree=3)
+    ts = TrainState(gaussians=learner, opt=init_adam(learner.params))
+    losses = []
+    for it in range(1, 31):
+        ts, metrics = step(ts, cam, gt, it, bg)
+        losses.append(float(metrics["total_loss"]))
+    return losses
+
+
+def small_train(report):
+    """Phase 4: K2 against its plain version and gradients on the card
+    against the CPU on the small scenes; a 30-step overfit on the card."""
+    import torch
+
+    from gs2d_torch.ops.rasterize.kernel_bwd import (rasterize_bwd,
+                                                     rasterize_bwd_reference)
+
+    abs_err = norm_err = 0.0
+    for i, (name, w, h, cloud) in enumerate(small_scene_list()):
+        state, noise = cloud_state(cloud, "cuda")
+        args = k2_inputs(lookat(w, h), state, noise, cot_seed=i)
+        got = rasterize_bwd(*args)
+        torch.cuda.synchronize()
+        a, b = slot_rows_err(got, rasterize_bwd_reference(*args),
+                             f"{name} K2")
+        abs_err, norm_err = max(abs_err, a), max(norm_err, b)
+        # through render: the card against CPU tensors (plain versions)
+        names, g_card = render_grads(lookat(w, h), state, noise, seed=i)
+        c_state, c_noise = cloud_state(cloud, "cpu")
+        cam_cpu = lookat(w, h, device="cpu")
+        _, g_cpu = render_grads(cam_cpu, c_state, c_noise, seed=i)
+        worst = 0.0
+        for f, x, y in zip(names, g_card, g_cpu):
+            worst = max(worst, grad_err(x.cpu(), y, f"{name} d {f}")[1])
+        print(f"small scene {name}: K2 vs plain max abs err {a:.3g} "
+              f"(normalised {b:.3g}); card vs CPU gradients of "
+              f"{', '.join(names)}: max normalised err {worst:.3g}",
+              flush=True)
+    report["max_abs_err"] = abs_err
+    report["max_norm_err"] = norm_err
+    losses = overfit()
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"overfit on the card: losses {losses}")
+    print(f"overfit 64x32, 30 steps on the card: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}", flush=True)
+
+
+class StageMarks:
+    """CUDA events around the train step's stages, by wrapping the
+    functions it looks up at call time (train/step.py: render,
+    compute_losses, apply_update; ops/rasterize/api.py: rasterize_bwd,
+    reduce_slot_grads). Keeps each stage's last arguments and result."""
+
+    def __init__(self):
+        import gs2d_torch.ops.rasterize.api as api
+        import gs2d_torch.train.step as step_mod
+        self.targets = [(step_mod, "render"), (step_mod, "compute_losses"),
+                        (api, "rasterize_bwd"), (api, "reduce_slot_grads"),
+                        (step_mod, "apply_update")]
+        self.events, self.seen = {}, {}
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def wrapped(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*args, **kw)
+            end.record()
+            self.events[name] = (start, end)
+            self.seen[name] = (args, res)
+            return res
+        return wrapped
+
+    def stage_ms(self):
+        """Per-stage device ms of the last step (after a synchronize)."""
+        ev = self.events
+
+        def ms(a, b):
+            return a.elapsed_time(b)
+        return {
+            "forward_render": ms(*ev["render"]),
+            "losses": ms(*ev["compute_losses"]),
+            "loss_and_bridge_bwd": ms(ev["compute_losses"][1],
+                                      ev["rasterize_bwd"][0]),
+            "rasterize_bwd": ms(*ev["rasterize_bwd"]),
+            "reduction": ms(*ev["reduce_slot_grads"]),
+            "preprocess_sh_bwd": ms(ev["reduce_slot_grads"][1],
+                                    ev["apply_update"][0]),
+            "adam_stats": ms(*ev["apply_update"])}
+
+
+def full_train(report, state):
+    """Phase 6: train_step at the bench.py train-step point (1M splats,
+    SH degree 3, 1920x1080, lambda_dist 10, depth_ratio 1, iteration
+    8000), with K2 checked against its plain version on view 0."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.config import OptimizationParams
+    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.train.optim import FIELDS, init_adam
+    from gs2d_torch.train.step import (TrainState, loss_and_grads,
+                                       make_train_step)
+
+    cam = bench_camera(0.0)
+    gt = torch.as_tensor(np.random.default_rng(1).random(
+        (3, HEIGHT, WIDTH), np.float32), device="cuda")
+    bg = torch.zeros(3, device="cuda")
+    cfg = OptimizationParams(lambda_dist=10.0)
+    step = make_train_step(cfg, max_sh_degree=SH_DEGREE, depth_ratio=1.0)
+    ts = TrainState(gaussians=state, opt=init_adam(state.params))
+    ts, _ = step(ts, cam, gt, TRAIN_ITER, bg)                  # warm-up
+    torch.cuda.synchronize()
+
+    # --- the main path: counts from zero, TRAIN_STEPS steps ---------------
+    kernel_fwd.rasterize_fwd.launches = 0
+    kernel_bwd.rasterize_bwd.launches = 0
+    step_ms = []
+    with StageMarks() as marks:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            before = (kernel_fwd.rasterize_fwd.launches,
+                      kernel_bwd.rasterize_bwd.launches)
+            denom0 = ts.gaussians.denom
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts, metrics = step(ts, cam, gt, TRAIN_ITER, bg)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            counts = (kernel_fwd.rasterize_fwd.launches - before[0],
+                      kernel_bwd.rasterize_bwd.launches - before[1])
+            if counts != (1, 1):
+                raise AssertionError(f"step {i}: rasterize_fwd, "
+                                     f"rasterize_bwd launched {counts}")
+            # finite gradients, parameters and statistics; denom grows by
+            # one exactly on the Gaussians visible in this step
+            args, _ = marks.seen["apply_update"]
+            grads, screen_grads = args[2], args[3]
+            g = ts.gaussians
+            for what, x in ([(f"d {f}", getattr(grads, f)) for f in FIELDS]
+                            + [(f, getattr(g.params, f)) for f in FIELDS]
+                            + [("d screen offsets", screen_grads),
+                               ("max_radii2d", g.max_radii2d),
+                               ("grad_accum", g.grad_accum),
+                               ("denom", g.denom)]):
+                if not torch.isfinite(x).all():
+                    raise AssertionError(f"step {i}: {what} not finite")
+            vis = marks.seen["render"][1]["radii"] > 0
+            if not torch.equal(g.denom - denom0, vis.float()) \
+                    or int(vis.sum()) == 0:
+                raise AssertionError(f"step {i}: denom did not grow by one "
+                                     f"on exactly the visible Gaussians")
+            line = {"step": i, "step_ms": step_ms[-1],
+                    "stage_ms": marks.stage_ms(),
+                    "loss": {k: float(metrics[k]) for k in (
+                        "total_loss", "l1", "ssim", "loss", "dist_loss",
+                        "normal_loss")},
+                    "num_pairs": metrics["num_pairs"],
+                    "visible": int(vis.sum()),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            print("train " + json.dumps(line), flush=True)
+        bwd_args = marks.seen["rasterize_bwd"][0]
+    launches = kernel_bwd.rasterize_bwd.launches
+    report["launches"] = launches
+    report["launches_by_path"] = {"train_step": launches}
+    report["fwd_launches_train"] = kernel_fwd.rasterize_fwd.launches
+    report["step_ms"] = sum(step_ms) / len(step_ms)
+    report["card_steps_per_s"] = 1e3 / report["step_ms"]
+
+    # --- one traced step: device busy share, top kernels ------------------
+    print("profile_train " + json.dumps(profile_call(
+        lambda: step(ts, cam, gt, TRAIN_ITER, bg), top=12)), flush=True)
+
+    # --- per-Gaussian gradients of two backward passes, bit for bit -------
+    st = ts.gaussians
+    runs = [loss_and_grads(st, cam, gt, TRAIN_ITER, bg, cfg,
+                           max_sh_degree=SH_DEGREE, depth_ratio=1.0)
+            for _ in range(2)]
+    for f in FIELDS:
+        if not torch.equal(getattr(runs[0][2], f), getattr(runs[1][2], f)):
+            raise AssertionError(f"two backward passes differ in d {f}")
+    if not torch.equal(runs[0][3], runs[1][3]):
+        raise AssertionError("two backward passes differ in d offsets")
+    del runs
+    print("two backward passes: per-Gaussian gradients bit-identical",
+          flush=True)
+
+    # --- K2 against its plain version at the step's inputs ----------------
+    packed, gid, tstart, tcount, out, cot, med, nc, _, _ = bwd_args
+    with torch.no_grad():
+        d = kernel_bwd.rasterize_bwd(*bwd_args)
+        T = out.shape[0]
+        tiles = [int(tcount.argmax())] + np.random.default_rng(0).choice(
+            T, SAMPLED_TILES, replace=False).tolist()
+        idx = torch.cat([torch.arange(int(tstart[t]),
+                                      int(tstart[t] + tcount[t]),
+                                      device="cuda") for t in tiles])
+        a, b = slot_rows_err(d[idx], kernel_bwd.rasterize_bwd_reference(
+            *bwd_args, tiles=tiles), "view 0 sampled tiles K2")
+        print(f"view 0 K2 vs plain, busiest tile ({int(tcount.max())} "
+              f"slots) and {SAMPLED_TILES} seeded tiles: max abs err "
+              f"{a:.3g} (normalised {b:.3g})", flush=True)
+        report["ms"] = cuda_ms(lambda: kernel_bwd.rasterize_bwd(*bwd_args),
+                               reps=KERNEL_REPS)
+        plain = {}
+        report["plain_ms"] = cuda_ms(lambda: plain.__setitem__(
+            "r", kernel_bwd.rasterize_bwd_reference(*bwd_args)))
+        a, b = slot_rows_err(d, plain.pop("r"), "view 0 all tiles K2")
+        report["max_abs_err"] = max(report["max_abs_err"], a)
+        report["max_norm_err"] = max(report["max_norm_err"], b)
+        print(f"view 0 K2 vs plain, all {T} tiles: max abs err {a:.3g} "
+              f"(normalised {b:.3g}); K2 {report['ms']:.3f} ms, plain "
+              f"{report['plain_ms']:.1f} ms", flush=True)
+
+    # --- bound from this run's inputs --------------------------------------
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (packed, gid, tstart, tcount, out, cot, med, nc, d))
+    ops = OPS_PER_EVAL_BWD * int(nc.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    report["bound_ms"] = max(t_bytes, t_ops)
+    report["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    report["bound_detail"] = {"bytes": nbytes, "bytes_ms": t_bytes,
+                              "ops": ops, "ops_ms": t_ops,
+                              "evaluated_pairs": int(nc.sum()),
+                              "max_n_contrib": int(nc.max())}
 
 
 def main() -> int:
@@ -420,19 +842,31 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
 
-    report = {"name": "rasterize_fwd", "route": "cuda",
-              "source": "gs2d_torch/csrc/rasterize_fwd.cu",
-              "replaces": "gs2d_tpu/ops/rasterize/kernel_fwd.py:201",
-              "library_ms": None}
-    report["max_abs_err"] = small_scenes(report)
-    full_width(report)
-    report["kernel_ms"] = report["ms"]
+    fwd = {"name": "rasterize_fwd", "route": "cuda",
+           "source": "gs2d_torch/csrc/rasterize_fwd.cu",
+           "replaces": "gs2d_tpu/ops/rasterize/kernel_fwd.py:201",
+           "library_ms": None}
+    bwd = {"name": "rasterize_bwd", "route": "cuda",
+           "source": "gs2d_torch/csrc/rasterize_bwd.cu",
+           "replaces": "gs2d_tpu/ops/rasterize/kernel_bwd.py:281",
+           "library_ms": None}
+    fwd["max_abs_err"] = small_scenes(fwd)
+    small_train(bwd)
+    state = bench_state()
+    full_width(fwd, state)
+    full_train(bwd, state)
+    # K1 runs on both paths: once per view and once per step
+    fwd["launches_by_path"]["train_step"] = bwd.pop("fwd_launches_train")
+    fwd["launches"] = sum(fwd["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "kernel_ms", "plain_ms_small", "kernel_ms_small",
-            "full_image_px_agree", "full_image_med_agree",
-            "full_image_contrib_agree", "bound_detail")
-    print(json.dumps({"kernels": [{k: report[k] for k in keys}]}))
+            "launches_by_path", "bound_detail")
+    fwd_keys = keys + ("plain_ms_small", "kernel_ms_small",
+                       "full_image_px_agree", "full_image_med_agree",
+                       "full_image_contrib_agree")
+    bwd_keys = keys + ("max_norm_err", "step_ms", "card_steps_per_s")
+    print(json.dumps({"kernels": [{k: fwd[k] for k in fwd_keys},
+                                  {k: bwd[k] for k in bwd_keys}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

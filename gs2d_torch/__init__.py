@@ -7,9 +7,14 @@ find, and imports neither JAX nor anything of ``gs2d_tpu``.
 Ported so far: the render path — camera → ``ops/rasterize/preprocess`` →
 ``ops/rasterize/binning`` → the hand-written CUDA forward compositing
 kernel (``csrc/rasterize_fwd.cu``, wrapped by
-``ops/rasterize/kernel_fwd.py``) → ``render/renderer.py``. Entry points
-take a ``device`` argument that defaults to ``"cuda"``; on a CPU tensor
-each kernel wrapper runs its plain PyTorch version instead.
+``ops/rasterize/kernel_fwd.py``) → ``render/renderer.py`` — and the
+training step (``train/step.py``): losses (``ops/ssim.py``), the backward
+compositing kernel (``csrc/rasterize_bwd.cu``, wrapped by
+``ops/rasterize/kernel_bwd.py``) behind the autograd boundary of
+``ops/rasterize/api.py``, Adam (``train/optim.py``) and the densification
+statistics (``models/densify.py``). Entry points take a ``device``
+argument that defaults to ``"cuda"``; on a CPU tensor each kernel wrapper
+runs its plain PyTorch version instead.
 """
 
 import torch as _torch

@@ -13,6 +13,7 @@ rest.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,19 @@ class GaussianParams:
 class GaussianState:
     params: GaussianParams
     active_sh_degree: int        # ramped +1 / 1000 iterations in training
+    # densification statistics (reference :405-407), (N,) f32 each, zeros
+    # when not given: the largest radius, the sum of screen-gradient
+    # norms and the number of steps the Gaussian was visible
+    max_radii2d: Optional[torch.Tensor] = None
+    grad_accum: Optional[torch.Tensor] = None
+    denom: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        xyz = self.params.xyz
+        for f in ("max_radii2d", "grad_accum", "denom"):
+            if getattr(self, f) is None:
+                setattr(self, f, torch.zeros(xyz.shape[0], dtype=torch.float32,
+                                             device=xyz.device))
 
 
 def activated(params: GaussianParams):
@@ -58,12 +72,14 @@ def sh_degree_mask(active_degree: int, max_degree: int,
 
 
 def state_from_numpy(xyz, features_dc, features_rest, scaling, rotation,
-                     opacity, active, active_sh_degree,
+                     opacity, active, active_sh_degree, max_radii2d=None,
+                     grad_accum=None, denom=None,
                      device="cuda") -> GaussianState:
-    """Carry a JAX ``GaussianParams`` over as NumPy arrays.
+    """Carry a JAX ``GaussianState`` over as NumPy arrays.
 
     The arrays are the JAX fields (capacity-padded); ``active`` (cap,)
-    selects the live rows, since the port has no capacity padding."""
+    selects the live rows, since the port has no capacity padding. The
+    densification statistics are zeros where not given."""
     act = np.asarray(active, bool)
 
     def dev(x):
@@ -75,5 +91,9 @@ def state_from_numpy(xyz, features_dc, features_rest, scaling, rotation,
         xyz=dev(xyz), features_dc=dev(features_dc),
         features_rest=dev(features_rest), scaling=dev(scaling),
         rotation=dev(rotation), opacity=dev(opacity))
+    stats = {k: None if v is None else dev(v) for k, v in (
+        ("max_radii2d", max_radii2d), ("grad_accum", grad_accum),
+        ("denom", denom))}
     return GaussianState(params=params,
-                         active_sh_degree=int(np.asarray(active_sh_degree)))
+                         active_sh_degree=int(np.asarray(active_sh_degree)),
+                         **stats)

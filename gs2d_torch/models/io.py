@@ -1,7 +1,7 @@
 """Model PLY IO with the exact 3DGS attribute schema
 (reference ``scene/gaussian_model.py:176-255``; ``gs2d_tpu/models/io.py``
 ``save_ply``/``load_ply``), so a model ``train.py`` writes renders here.
-Checkpoints with optimizer state come with the training slice."""
+Checkpoints with optimizer state come with the training loop."""
 
 from __future__ import annotations
 

@@ -15,6 +15,12 @@ front-to-back order:
    ``tile·N + depth_rank``;
 4. per-tile ranges from ``bincount``/``cumsum``.
 
+It also returns what the backward's per-Gaussian reduction needs (the
+counterpart of the JAX package's ``seg_end_d``/``inv_order``/``inv``): the
+depth order, each Gaussian's pair count in that order, and the sort
+permutation from slots back to expansion order, where each Gaussian's
+pairs are contiguous.
+
 The JAX package's conservative interval cull (``binning.py:413-521``)
 is not ported yet: it only drops pairs whose alpha is below the cutoff
 on every pixel of the tile, so images do not depend on it.
@@ -34,6 +40,9 @@ class BinningOut(NamedTuple):
     tile_start: torch.Tensor  # (T,) int32 first slot of each tile
     tile_count: torch.Tensor  # (T,) int32 slots of each tile
     num_pairs: int            # P
+    order: torch.Tensor       # (N,) int64 Gaussian ids front to back
+    counts: torch.Tensor      # (N,) int64 pairs per Gaussian, depth order
+    perm: torch.Tensor        # (P,) int64 slot → expansion index
 
 
 def tile_rects(center2d: torch.Tensor, extent: torch.Tensor,
@@ -89,4 +98,5 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
     tile_count = torch.bincount(tile, minlength=T)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
     return BinningOut(gid=gid, tile_start=tile_start.to(torch.int32),
-                      tile_count=tile_count.to(torch.int32), num_pairs=P)
+                      tile_count=tile_count.to(torch.int32), num_pairs=P,
+                      order=order, counts=counts, perm=perm)

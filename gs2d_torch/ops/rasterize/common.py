@@ -4,9 +4,9 @@ Copied from ``gs2d_tpu/ops/rasterize/common.py``: the numeric contract of
 the reference CUDA rasterizer (0.99 alpha clamp, 1/255 alpha cutoff, 1e-4
 transmittance early-out, 0.2/100.0 near/far for the distortion depth
 remap, 3-sigma screen-space extent, inverse-square low-pass filter 2.0),
-the 24-float entry record and the 15 output channels. The CUDA kernel
-(``gs2d_torch/csrc/rasterize_fwd.cu``) repeats these values; keep the two
-in step.
+the 24-float entry record, the 22-float gradient row and the 15 output
+channels. The CUDA kernels (``gs2d_torch/csrc/rasterize_fwd.cu``,
+``rasterize_bwd.cu``) repeat these values; keep them in step.
 """
 
 from __future__ import annotations
@@ -41,6 +41,20 @@ FLD_RGB = slice(15, 18)
 FLD_NORMAL = slice(18, 21)
 FLD_NOISE = slice(21, 24)
 ENTRY_F = 24
+
+# Backward gradient-row layout (the backward kernel's per-slot rows): the
+# entry layout minus the two center columns, which feed only the low-pass
+# branch and so carry no gradient. The screen-space densification gradient
+# flows through A instead (preprocess.py screen_offsets).
+DFLD_A = slice(0, 3)
+DFLD_B = slice(3, 6)
+DFLD_C = slice(6, 9)
+DFLD_C2 = slice(9, 12)
+DFLD_OPACITY = 12
+DFLD_RGB = slice(13, 16)
+DFLD_NORMAL = slice(16, 19)
+DFLD_NOISE = slice(19, 22)
+DENTRY_F = 22
 
 # Output channel layout of the tile kernel (the bridge exposes the first
 # 13; channels 13-14 are totals the backward pass needs).

@@ -6,6 +6,9 @@ render, rend_alpha, rend_normal (world space), rend_dist, surf_depth,
 surf_normal, rend_noise (min-max normalized, detached), radii,
 visibility_filter, plus the expected and median depths and the pair
 count. There are no capacity keys: the port has no capacities.
+``screen_offsets`` replaces the reference's retain_grad() means2D dummy:
+pass zeros that require grad, and their gradient is the per-Gaussian
+screen-space gradient the densification statistics use.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from ..scene.cameras import Camera
 def prepare(camera: Camera, state: GaussianState, *, max_sh_degree: int = 3,
             scaling_modifier: float = 1.0,
             override_color: Optional[torch.Tensor] = None,
-            noise: Optional[torch.Tensor] = None) -> PreprocessOut:
+            noise: Optional[torch.Tensor] = None,
+            screen_offsets: Optional[torch.Tensor] = None) -> PreprocessOut:
     """Activate the state and run the per-Gaussian preprocess."""
     xyz, scales, quats, opacity, shs = activated(state.params)
     if override_color is None:
@@ -39,6 +43,7 @@ def prepare(camera: Camera, state: GaussianState, *, max_sh_degree: int = 3,
         shs=None if override_color is not None else shs,
         colors=override_color,
         scale_modifier=scaling_modifier,
+        screen_offsets=screen_offsets,
         noise=noise,
     )
 
@@ -88,6 +93,7 @@ def render(camera: Camera, state: GaussianState, bg: torch.Tensor, *,
            max_sh_degree: int = 3, scaling_modifier: float = 1.0,
            override_color: Optional[torch.Tensor] = None,
            noise: Optional[torch.Tensor] = None,
+           screen_offsets: Optional[torch.Tensor] = None,
            depth_ratio: float = 0.0, device="cuda") -> dict:
     """Render ``state`` from ``camera`` on ``device`` (default ``"cuda"``).
 
@@ -97,12 +103,13 @@ def render(camera: Camera, state: GaussianState, bg: torch.Tensor, *,
     device = torch.device(device)
     tensors = [("camera", camera.world_view), ("state", state.params.xyz),
                ("bg", bg), ("override_color", override_color),
-               ("noise", noise)]
+               ("noise", noise), ("screen_offsets", screen_offsets)]
     for name, x in tensors:
         if x is not None and x.device.type != device.type:
             raise ValueError(f"render on {device}: {name} is on {x.device}")
     pre = prepare(camera, state, max_sh_degree=max_sh_degree,
                   scaling_modifier=scaling_modifier,
-                  override_color=override_color, noise=noise)
+                  override_color=override_color, noise=noise,
+                  screen_offsets=screen_offsets)
     out, aux = rasterize(pre, camera.width, camera.height)
     return bridge(camera, pre, out, aux, bg, depth_ratio)
