@@ -3,8 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
-(``gs2d_torch.render.renderer.render``) and the training step
-(``gs2d_torch.train.step.make_train_step``) on the card:
+(``gs2d_torch.render.renderer.render``), the training step
+(``gs2d_torch.train.step.make_train_step``) and the training loop
+(``gs2d_torch.train.loop.train``) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel, compiled together, with the build seconds and
@@ -33,10 +34,32 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
    Gaussians. Per step: step and stage times (CUDA events), loss terms and
    peak memory; one profiled step; two backward passes bit-identical; K2
    against its plain version on sampled tiles and all of view 0;
-7. one ``{"kernels": [...]}`` line: per kernel its launches on the main
-   paths, error, time, plain-version time and the bound computed from this
-   run's inputs (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32);
-8. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
+7. small loop: the card twin of tests/test_loop_e2e.py,
+   300 iterations of ``train()`` on three 64x32 views from 12 points;
+   densification must grow N past 12, every logged loss be finite and
+   view 0's PSNR rise by more than 2 dB;
+8. row gather (G1–G5's function): ``gather_rows`` bit-identical to
+   ``table[idx]`` for F in GATHER_F, M in {0, 1, 1000, GATHER_M}, int32
+   and int64 indices, out-of-range indices raising; the kernel alone and
+   its wrapper timed (mean of 20, CUDA events) beside
+   ``torch.index_select`` and the plain version at the probes' shape and
+   at view 0's expansion gather ``packed[gid]``;
+9. full-width loop: ``train()`` resumed from a checkpoint of the
+   perturbed 1M-splat scene at iteration 2900 and run to 3100 against
+   renders of the true scene (densify at 3000 and 3100, the opacity
+   reset at 3000). Gates: K1 and K2 once per step; after each densify
+   the N equation, the gather launches its code implies and bit-identity
+   with the same call through the plain gather; after the reset the
+   opacity cap and zero opacity moments; finite losses, parameters and
+   moments; the checkpoint written at 3100 resumes 5 steps bit for bit.
+   Prints per-window step times and pairs, densify and reset times, the
+   gather's share, checkpoint write and read times and peak memory;
+10. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+   paths, error, time, plain-version time, library-call time where there
+   is one and the bound computed from this run's inputs (H100 SXM peaks:
+   3.35 TB/s, 67 TFLOP/s FP32);
+11. the card line, then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Any failure exits non-zero before the last line is printed; so does a
 machine without CUDA or a directory without the gs2d_torch package.
@@ -77,6 +100,19 @@ DFLD = {"A": slice(0, 3), "B": slice(3, 6), "C": slice(6, 9),
 TRAIN_ITER = 8000                  # bench.py: every loss term live
 TRAIN_STEPS = 5
 KERNEL_REPS = 20
+GATHER_N = 1 << 20                 # scripts/probe_gather_kernel.py:59-61
+GATHER_M = 5_600_256
+GATHER_F = (1, 2, 3, 4, 24, 45)
+# tests/test_loop_e2e.py:77-82, the compressed schedule of the small loop
+SMALL_LOOP = dict(iterations=300, densify_from_iter=20,
+                  densify_until_iter=220, densification_interval=20,
+                  opacity_reset_interval=120, densify_grad_threshold=5e-5,
+                  percent_dense=0.01, position_lr_init=2e-3,
+                  position_lr_final=2e-4)
+# the full-width loop resumes at 2900 and runs to 3100: densify at 3000
+# (size threshold 0) and 3100 (threshold 20), the opacity reset at 3000
+LOOP_FROM, LOOP_TO = 2900, 3100
+RESUME_STEPS = 5
 
 
 def card_line() -> str:
@@ -426,6 +462,10 @@ def full_width(report, state):
             raise AssertionError(
                 f"view 0 full image: only {report['full_image_px_agree']:.5f}"
                 f" of pixels agree with the plain version at {TOL}")
+
+        # view 0's entry table and slot list: the per-pair expansion
+        # gather packed[gid] that K1 does inside, timed by the gather phase
+        report["_gather_inputs"] = (inputs0[0], inputs0[1])
 
         # --- one traced render of view 0: device busy share, top kernels ---
         print("profile " + json.dumps(profile_call(
@@ -818,6 +858,526 @@ def full_train(report, state):
                               "max_n_contrib": int(nc.max())}
 
 
+def gather_bytes(table, idx) -> int:
+    """What the row gather must move: the table and the indices read
+    once, the (M, F) output written once."""
+    return (table.numel() * 4 + idx.numel() * idx.element_size()
+            + idx.numel() * table.shape[1] * 4)
+
+
+def time_gather(table, idx) -> dict:
+    """The row-gather kernel alone (``ms``: launches into one output, no
+    allocation, no flag read), its wrapper ``gather_rows`` (``wrapper_ms``:
+    allocation, launch and the out-of-range flag read, one host sync per
+    call), ``torch.index_select`` and the plain version on the same
+    inputs, each the mean of KERNEL_REPS calls, with the bound from their
+    bytes."""
+    import torch
+
+    from gs2d_torch.ops import gather
+    out = torch.empty((idx.numel(), table.shape[1]), device="cuda")
+    bad = torch.zeros(1, dtype=torch.int32, device="cuda")
+    gather.gather_rows(table, idx)
+    torch.index_select(table, 0, idx)
+    res = {"N": table.shape[0], "F": table.shape[1], "M": idx.numel(),
+           "index_dtype": str(idx.dtype).replace("torch.", ""),
+           "ms": cuda_ms(lambda: gather.launch(table, idx, out, bad),
+                         reps=KERNEL_REPS),
+           "wrapper_ms": cuda_ms(lambda: gather.gather_rows(table, idx),
+                                 reps=KERNEL_REPS),
+           "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx),
+                                 reps=KERNEL_REPS),
+           "plain_ms": cuda_ms(lambda: gather.gather_rows_reference(
+               table, idx), reps=KERNEL_REPS),
+           "bytes": gather_bytes(table, idx)}
+    if bad.item() or not torch.equal(out, table[idx.long()]):
+        raise AssertionError("gather kernel timing: output differs")
+    res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
+    return res
+
+
+def gather_phase(report, table0, gid0):
+    """Phase 8: the row-gather kernel (G1–G5) bit for bit against
+    table[idx] for every F of GATHER_F, M in {0, 1, 1000, GATHER_M}, both
+    index types (negative indices included) and out-of-range indices,
+    which must raise; then timed at the probes' shape and at view 0's
+    expansion gather packed[gid]."""
+    import torch
+
+    from gs2d_torch.ops.gather import gather_rows
+    g = torch.Generator(device="cuda").manual_seed(0)
+    before, calls, cases = gather_rows.launches, 0, 0
+    for f in GATHER_F:
+        table = torch.rand((GATHER_N, f), generator=g, device="cuda")
+        for dtype in (torch.int32, torch.int64):
+            for m in (0, 1, 1000, GATHER_M):
+                idx = torch.randint(-GATHER_N, GATHER_N, (m,), generator=g,
+                                    dtype=dtype, device="cuda")
+                out = gather_rows(table, idx)
+                calls += m > 0
+                cases += 1
+                if tuple(out.shape) != (m, f) \
+                        or not torch.equal(out, table[idx.long()]):
+                    raise AssertionError(f"gather_rows F={f} M={m} {dtype}: "
+                                         f"not equal to table[idx]")
+            for bad in (GATHER_N, -GATHER_N - 1):
+                try:
+                    gather_rows(table, torch.tensor([0, bad], dtype=dtype,
+                                                    device="cuda"))
+                except IndexError:
+                    calls += 1
+                else:
+                    raise AssertionError(f"gather_rows F={f} {dtype}: index "
+                                         f"{bad} of {GATHER_N} rows did not "
+                                         f"raise")
+        del table, out
+    if gather_rows.launches - before != calls:
+        raise AssertionError(f"gather_rows launched "
+                             f"{gather_rows.launches - before} times for "
+                             f"{calls} non-empty calls")
+    print(f"gather: {cases} cases (F {list(GATHER_F)}, M 0/1/1000/"
+          f"{GATHER_M}, int32 and int64) bit-identical to table[idx]; "
+          f"out-of-range indices raise", flush=True)
+
+    probe = time_gather(
+        torch.rand((GATHER_N, 24), generator=g, device="cuda"),
+        torch.randint(0, GATHER_N, (GATHER_M,), generator=g,
+                      dtype=torch.int32, device="cuda"))
+    print("gather probe shape " + json.dumps(probe), flush=True)
+    view0 = time_gather(table0, gid0)
+    if not torch.equal(gather_rows(table0, gid0), table0[gid0.long()]):
+        raise AssertionError("gather_rows packed[gid] of view 0 differs")
+    print("gather view 0 packed[gid] " + json.dumps(view0), flush=True)
+    report["max_abs_err"] = 0.0
+    for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "library_ms"):
+        report[k] = view0[k]
+    report["bound_by"] = "bytes"
+    report["bound_detail"] = {"bytes": view0["bytes"], "N": view0["N"],
+                              "F": view0["F"], "M": view0["M"]}
+    report["probe_shape"] = probe
+
+
+class LoopScene:
+    """The in-memory scene ``gs2d_torch.train.loop.train`` takes (the
+    dataset loaders are not ported yet)."""
+
+    def __init__(self, gaussians, cameras_extent, model_path, cams):
+        self.gaussians = gaussians
+        self.cameras_extent = cameras_extent
+        self.model_path = model_path
+        self.cams = cams
+        self.saved = []
+
+    def get_train_cameras(self):
+        return self.cams
+
+    def save(self, iteration, state):
+        self.saved.append(iteration)
+
+
+def psnr(img, ref) -> float:
+    mse = float(((img - ref) ** 2).mean())
+    return -10.0 * math.log10(max(mse, 1e-10))
+
+
+def small_loop():
+    """Phase 7: the card twin of tests/test_loop_e2e.py — three 64x32
+    views of a 40-splat scene, a learner from 12 displaced flat-gray
+    points, 300 iterations of train() with densify every 20 and a reset
+    every 120. → (N, losses, PSNR before, PSNR after)."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.config import (ModelParams, OptimizationParams,
+                                   PipelineParams, RuntimeParams)
+    from gs2d_torch.models.gaussians import init_from_pcd
+    from gs2d_torch.render.renderer import render
+    from gs2d_torch.scene.cameras import CameraData
+    from gs2d_torch.train.loop import train
+
+    means, scales, _, _, rgb, _ = random_cloud(40, 3, spread=0.9,
+                                               scale_lo=0.08, scale_hi=0.35)
+    true = init_from_pcd(means, rgb, init_scales=np.log(scales), seed=0)
+    bg = torch.zeros(3, device="cuda")
+    cams = [lookat(64, 32, dist=d) for d in (4.0, 3.4, 4.7)]
+    with torch.no_grad():
+        imgs = [render(c, true, bg)["render"] for c in cams]
+    init_pts = means[:12] + np.random.default_rng(11).normal(
+        scale=0.15, size=(12, 3)).astype(np.float32)
+    learner = init_from_pcd(init_pts, np.full((12, 3), 0.5, np.float32),
+                            max_sh_degree=2, seed=0)
+    scene = LoopScene(learner, 1.5, "", [
+        CameraData(camera=c, image=img, image_name=f"v{i}", uid=i)
+        for i, (c, img) in enumerate(zip(cams, imgs))])
+    logs = []
+    ts, _ = train(ModelParams(sh_degree=2), OptimizationParams(**SMALL_LOOP),
+                  PipelineParams(), RuntimeParams(seed=0), scene=scene,
+                  test_iterations=(), save_iterations=(),
+                  log_fn=lambda it, r: logs.append(r["loss"]))
+
+    def view0(state):
+        with torch.no_grad():
+            return psnr(render(cams[0], state, bg, max_sh_degree=2)
+                        ["render"], imgs[0])
+
+    return (ts.gaussians.params.xyz.shape[0], logs, view0(learner),
+            view0(ts.gaussians))
+
+
+class LoopProbe:
+    """Wraps what ``gs2d_torch.train.loop`` looks up at call time — the
+    step, densify, the opacity reset and the checkpoint writer — to time
+    them with CUDA events and check each call: K1 and K2 once per step;
+    after each densify the N equation, the gather launches its code
+    implies, bit-identity with a replay through the plain gather on the
+    same inputs and noise, and finite parameters and moments; after each
+    reset the opacity cap and zero opacity moments."""
+
+    def __init__(self):
+        import gs2d_torch.models.densify as densify_mod
+        import gs2d_torch.train.loop as loop_mod
+        self.loop_mod, self.densify_mod = loop_mod, densify_mod
+        self.names = ("make_train_step", "densify_and_prune",
+                      "reset_opacity", "save_checkpoint", "load_checkpoint")
+        self.steps, self.densify, self.resets, self.ckpt = [], [], [], []
+        self.loaded = None
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.loop_mod, k) for k in self.names}
+        for k in self.names:
+            setattr(self.loop_mod, k, getattr(self, "_" + k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.loop_mod, k, fn)
+
+    def _make_train_step(self, *args, **kw):
+        import torch
+
+        from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+        step = self.saved["make_train_step"](*args, **kw)
+
+        def probed(ts, camera, gt, iteration, bg):
+            k1 = kernel_fwd.rasterize_fwd.launches
+            k2 = kernel_bwd.rasterize_bwd.launches
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts, metrics = step(ts, camera, gt, iteration, bg)
+            end.record()
+            counts = (kernel_fwd.rasterize_fwd.launches - k1,
+                      kernel_bwd.rasterize_bwd.launches - k2)
+            if counts != (1, 1):
+                raise AssertionError(f"iteration {iteration}: rasterize_fwd, "
+                                     f"rasterize_bwd launched {counts}")
+            self.steps.append((int(iteration), start, end,
+                               metrics["num_pairs"], metrics["num_points"]))
+            return ts, metrics
+        return probed
+
+    def _densify_and_prune(self, state, opt, *args, generator, **kw):
+        import torch
+
+        from gs2d_torch.ops.gather import gather_rows, gather_rows_reference
+        from gs2d_torch.train.optim import FIELDS
+        real = self.saved["densify_and_prune"]
+        gen_state = generator.get_state()
+        n0 = state.params.xyz.shape[0]
+        marks = []
+
+        def timed_gather(table, idx):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = gather_rows(table, idx)
+            e.record()
+            marks.append((s, e))
+            return out
+
+        before = gather_rows.launches
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        self.densify_mod.gather_rows = timed_gather
+        try:
+            t0.record()
+            new_s, new_o, c = real(state, opt, *args, generator=generator,
+                                   **kw)
+            t1.record()
+        finally:
+            self.densify_mod.gather_rows = gather_rows
+        t1.synchronize()
+        launches = gather_rows.launches - before
+        n1 = new_s.params.xyz.shape[0]
+        it = self.steps[-1][0]
+        if n1 != n0 - c.pruned + c.clone + 2 * c.split - c.culled:
+            raise AssertionError(f"densify at {it}: N {n0} -> {n1} with {c}")
+        # one launch per parameter leaf and per moment leaf that has rows,
+        # one for the kept split children's noise
+        expect = 6 * (n1 > 0) + 12 * (n0 > c.pruned) + (c.children > 0)
+        if launches != expect:
+            raise AssertionError(f"densify at {it}: gather_rows launched "
+                                 f"{launches} times, its code implies "
+                                 f"{expect}")
+        # the same call through the plain gather, with the same noise
+        replay = torch.Generator(device=generator.device)
+        replay.set_state(gen_state)
+        self.densify_mod.gather_rows = gather_rows_reference
+        try:
+            ref_s, ref_o, ref_c = real(state, opt, *args, generator=replay,
+                                       **kw)
+        finally:
+            self.densify_mod.gather_rows = gather_rows
+        if gather_rows.launches != before + launches or ref_c != c:
+            raise AssertionError(f"densify at {it}: the replay launched the "
+                                 f"kernel or counted {ref_c} against {c}")
+        pairs = [(f"params.{f}", getattr(new_s.params, f),
+                  getattr(ref_s.params, f)) for f in FIELDS]
+        pairs += [(f"{m}.{f}", getattr(getattr(new_o, m), f),
+                   getattr(getattr(ref_o, m), f))
+                  for m in ("mu", "nu") for f in FIELDS]
+        pairs += [(f, getattr(new_s, f), getattr(ref_s, f))
+                  for f in ("max_radii2d", "grad_accum", "denom")]
+        for what, a, b in pairs:
+            if not torch.equal(a, b):
+                raise AssertionError(f"densify at {it}: {what} differs from "
+                                     f"the plain gather's")
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"densify at {it}: {what} not finite")
+        del ref_s, ref_o, pairs
+        self.densify.append({
+            "iteration": it, "n_before": n0, "n_after": n1,
+            "clone": c.clone, "split": c.split, "pruned": c.pruned,
+            "culled": c.culled, "children": c.children,
+            "ms": t0.elapsed_time(t1),
+            "gather_ms": sum(s.elapsed_time(e) for s, e in marks),
+            "gather_launches": launches})
+        return new_s, new_o, c
+
+    def _reset_opacity(self, state, opt):
+        import torch
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        new_s, new_o = self.saved["reset_opacity"](state, opt)
+        t1.record()
+        t1.synchronize()
+        it = self.steps[-1][0]
+        o = torch.sigmoid(new_s.params.opacity)
+        if not torch.isfinite(new_s.params.opacity).all() \
+                or float(o.max()) > 0.01 + 1e-6:
+            raise AssertionError(f"reset at {it}: sigmoid(opacity) up to "
+                                 f"{float(o.max())}")
+        if new_o.mu.opacity.any() or new_o.nu.opacity.any():
+            raise AssertionError(f"reset at {it}: opacity moments not zero")
+        self.resets.append({"iteration": it, "ms": t0.elapsed_time(t1),
+                            "n": new_s.params.xyz.shape[0]})
+        return new_s, new_o
+
+    def _save_checkpoint(self, path, *args, **kw):
+        t0 = time.perf_counter()
+        self.saved["save_checkpoint"](path, *args, **kw)
+        self.ckpt.append({"path": path, "write_s": time.perf_counter() - t0,
+                          "bytes": Path(path).stat().st_size})
+
+    def _load_checkpoint(self, path, *args, **kw):
+        import torch
+        t0 = time.perf_counter()
+        res = self.saved["load_checkpoint"](path, *args, **kw)
+        torch.cuda.synchronize()
+        self.loaded = {"read_s": time.perf_counter() - t0,
+                       "bytes": Path(path).stat().st_size}
+        return res
+
+
+def nerfpp_radius(cams) -> float:
+    """The scene extent of gs2d_tpu/scene/dataset.py:50-62: 1.1 × the
+    largest distance of a camera centre from their mean."""
+    import numpy as np
+    centers = np.stack([c.campos.cpu().numpy() for c in cams])
+    return float(np.linalg.norm(centers - centers.mean(0), axis=1).max()
+                 * 1.1)
+
+
+def same_state(a, b) -> bool:
+    """Two TrainStates bit for bit: parameters, moments, statistics."""
+    import torch
+
+    from gs2d_torch.train.optim import FIELDS
+    ga, gb = a.gaussians, b.gaussians
+    return (all(torch.equal(getattr(x, f), getattr(y, f)) for f in FIELDS
+                for x, y in ((ga.params, gb.params), (a.opt.mu, b.opt.mu),
+                             (a.opt.nu, b.opt.nu)))
+            and all(torch.equal(getattr(ga, f), getattr(gb, f))
+                    for f in ("max_radii2d", "grad_accum", "denom"))
+            and a.opt.step == b.opt.step
+            and ga.active_sh_degree == gb.active_sh_degree)
+
+
+def full_loop(report, state):
+    """Phase 9: train() at full width. The 1M-splat SH-3 scene is the
+    true scene: its renders of the VIEW_DEGREES views (zero background)
+    are the ground truth. The learner is that scene perturbed with
+    default_rng(2) (xyz + N(0, 0.01²), scaling + N(0, 0.1²), features_dc +
+    N(0, 0.1²)), written as a checkpoint at LOOP_FROM with fresh Adam
+    moments; train() resumes from it and runs to LOOP_TO with the
+    reference schedule (lambda_dist 10, depth_ratio 1), writing a
+    checkpoint at LOOP_TO, which must resume bit for bit."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gs2d_torch.config import (ModelParams, OptimizationParams,
+                                   PipelineParams, RuntimeParams)
+    from gs2d_torch.models.gaussians import GaussianParams, GaussianState
+    from gs2d_torch.models.io import load_checkpoint, save_checkpoint
+    from gs2d_torch.ops.gather import gather_rows
+    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.render.renderer import render
+    from gs2d_torch.scene.cameras import CameraData
+    from gs2d_torch.train.loop import train
+    from gs2d_torch.train.optim import FIELDS, init_adam
+    from gs2d_torch.train.step import TrainState, make_train_step
+
+    cams = [bench_camera(th) for th in VIEW_DEGREES]
+    bg = torch.zeros(3, device="cuda")
+    with torch.no_grad():
+        gts = [render(c, state, bg)["render"] for c in cams]
+    extent = nerfpp_radius(cams)
+    rng = np.random.default_rng(2)
+    p = state.params
+
+    def noisy(x, sigma):
+        return x + torch.as_tensor(rng.normal(0.0, sigma, tuple(x.shape))
+                                   .astype(np.float32), device="cuda")
+
+    xyz, scaling = noisy(p.xyz, 0.01), noisy(p.scaling, 0.1)
+    learner = GaussianState(params=GaussianParams(
+        xyz=xyz, features_dc=noisy(p.features_dc, 0.1),
+        features_rest=p.features_rest, scaling=scaling, rotation=p.rotation,
+        opacity=p.opacity), active_sh_degree=SH_DEGREE)
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    start = str(out_dir / f"chkpnt{LOOP_FROM}.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(start, learner, init_adam(learner.params), LOOP_FROM,
+                    extent)
+    start_write_s = time.perf_counter() - t0
+    scene = LoopScene(learner, extent, str(out_dir), [
+        CameraData(camera=c, image=g, image_name=f"view{i}", uid=i)
+        for i, (c, g) in enumerate(zip(cams, gts))])
+    cfg = OptimizationParams(iterations=LOOP_TO, lambda_dist=10.0)
+    n_start = learner.params.xyz.shape[0]
+    del learner, xyz, scaling
+
+    # --- the main path: counts from zero, train() from the checkpoint ------
+    logs = []
+    kernel_fwd.rasterize_fwd.launches = 0
+    kernel_bwd.rasterize_bwd.launches = 0
+    gather_rows.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LoopProbe() as probe:
+        ts, _ = train(ModelParams(sh_degree=SH_DEGREE), cfg,
+                      PipelineParams(depth_ratio=1.0), RuntimeParams(seed=0),
+                      scene=scene, test_iterations=(), save_iterations=(),
+                      checkpoint_iterations=(LOOP_TO,),
+                      start_checkpoint=start,
+                      log_fn=lambda it, r: logs.append((it, r)))
+        torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"rasterize_fwd": kernel_fwd.rasterize_fwd.launches,
+                "rasterize_bwd": kernel_bwd.rasterize_bwd.launches,
+                "gather_rows": gather_rows.launches}
+    n_steps = LOOP_TO - LOOP_FROM
+    if [s[0] for s in probe.steps] != list(range(LOOP_FROM + 1,
+                                                 LOOP_TO + 1)):
+        raise AssertionError("train() did not resume at "
+                             f"{LOOP_FROM + 1} and run to {LOOP_TO}")
+    if launches["rasterize_fwd"] != n_steps \
+            or launches["rasterize_bwd"] != n_steps:
+        raise AssertionError(f"loop launches {launches} for {n_steps} steps")
+    if [d["iteration"] for d in probe.densify] != [3000, 3100] \
+            or [r["iteration"] for r in probe.resets] != [3000]:
+        raise AssertionError("densify / reset off the reference schedule: "
+                             f"{probe.densify} {probe.resets}")
+    if launches["gather_rows"] != sum(d["gather_launches"]
+                                      for d in probe.densify):
+        raise AssertionError("gather_rows launched outside densify")
+    if probe.densify[0]["n_before"] != n_start:
+        raise AssertionError("the resumed state lost rows")
+    for it, rec in logs:
+        if not all(math.isfinite(rec[k]) for k in ("loss", "dist",
+                                                   "normal")):
+            raise AssertionError(f"iteration {it}: logged loss {rec}")
+    g = ts.gaussians
+    for f in FIELDS:
+        for what, tree in (("params", g.params), ("mu", ts.opt.mu),
+                           ("nu", ts.opt.nu)):
+            if not torch.isfinite(getattr(tree, f)).all():
+                raise AssertionError(f"after the loop: {what}.{f} not "
+                                     f"finite")
+
+    # --- per-window step times, pairs, densify and reset -------------------
+    windows = []
+    for lo in range(LOOP_FROM, LOOP_TO, 100):
+        win = [s for s in probe.steps if lo < s[0] <= lo + 100]
+        ms = [s[1].elapsed_time(s[2]) for s in win]
+        windows.append({"iterations": f"{lo + 1}-{lo + 100}",
+                        "mean_step_ms": sum(ms) / len(ms),
+                        "min_step_ms": min(ms), "max_step_ms": max(ms),
+                        "pairs_min": min(s[3] for s in win),
+                        "pairs_max": max(s[3] for s in win),
+                        "points": sorted({s[4] for s in win})})
+    for w in windows:
+        print("loop window " + json.dumps(w), flush=True)
+    for d in probe.densify:
+        print("loop densify " + json.dumps(d), flush=True)
+    for r in probe.resets:
+        print("loop reset " + json.dumps(r), flush=True)
+    probe.loaded["write_s"] = start_write_s
+    print(f"loop start checkpoint ({n_start} splats) " +
+          json.dumps(probe.loaded), flush=True)
+    print(f"loop N: {n_start} at {LOOP_FROM}, "
+          f"{probe.densify[0]['n_after']} at 3000, "
+          f"{probe.densify[1]['n_after']} at 3100; {n_steps} steps in "
+          f"{loop_s:.1f} s (densify replays and checks included); peak "
+          f"{peak:.2f} GiB", flush=True)
+
+    # --- resume: the checkpoint at LOOP_TO against the in-memory state -----
+    ck = probe.ckpt[-1]
+    t0 = time.perf_counter()
+    gs2, opt2, it2, _ = load_checkpoint(ck["path"])
+    torch.cuda.synchronize()
+    ck["read_s"] = time.perf_counter() - t0
+    loaded = TrainState(gaussians=gs2, opt=opt2)
+    if it2 != LOOP_TO or not same_state(loaded, ts):
+        raise AssertionError("the checkpoint does not hold the loop's state")
+    step = make_train_step(cfg, max_sh_degree=SH_DEGREE,
+                           spatial_lr_scale=extent, depth_ratio=1.0)
+    a, b = ts, loaded
+    for i in range(RESUME_STEPS):
+        v = i % len(cams)
+        a, _ = step(a, cams[v], gts[v], LOOP_TO + 1 + i, bg)
+        b, _ = step(b, cams[v], gts[v], LOOP_TO + 1 + i, bg)
+    if not same_state(a, b):
+        raise AssertionError(f"{RESUME_STEPS} steps from the loaded "
+                             f"checkpoint differ from the in-memory state")
+    ck.pop("path")
+    print("loop checkpoint " + json.dumps(ck) + f"; {RESUME_STEPS} steps "
+          "from it bit-identical to the in-memory state", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    report.update(launches=launches, windows=windows,
+                  densify=probe.densify, resets=probe.resets,
+                  checkpoint=ck, start_checkpoint=probe.loaded,
+                  peak_gib=peak)
+
+
 def main() -> int:
     if not (ROOT / "gs2d_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repo (no "
@@ -850,14 +1410,40 @@ def main() -> int:
            "source": "gs2d_torch/csrc/rasterize_bwd.cu",
            "replaces": "gs2d_tpu/ops/rasterize/kernel_bwd.py:281",
            "library_ms": None}
+    gat = {"name": "gather_rows", "route": "cuda",
+           "source": "gs2d_torch/csrc/gather_rows.cu",
+           "replaces": "scripts/probe_gather_kernel.py:80",
+           "replaces_also": ["scripts/probe_gather_kernel.py:106",
+                             "scripts/probe_gather_kernel.py:144",
+                             "scripts/probe_gather_kernel2.py:57",
+                             "scripts/probe_gather_kernel2.py:83"]}
     fwd["max_abs_err"] = small_scenes(fwd)
     small_train(bwd)
     state = bench_state()
     full_width(fwd, state)
     full_train(bwd, state)
-    # K1 runs on both paths: once per view and once per step
+    n, losses, p0, p1 = small_loop()
+    if n <= 12 or not all(math.isfinite(x) for x in losses) \
+            or not p1 > p0 + 2.0:
+        raise AssertionError(f"small loop on the card: N {n}, PSNR {p0:.2f} "
+                             f"-> {p1:.2f} dB, losses {losses}")
+    print(f"small loop 64x32, 300 iterations on the card: N 12 -> {n}, "
+          f"view 0 PSNR {p0:.2f} -> {p1:.2f} dB", flush=True)
+    gather_phase(gat, *fwd.pop("_gather_inputs"))
+    loop = {}
+    full_loop(loop, state)
+    # K1 runs on every path: once per view and once per step
     fwd["launches_by_path"]["train_step"] = bwd.pop("fwd_launches_train")
+    fwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_fwd"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
+    bwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_bwd"]
+    bwd["launches"] = sum(bwd["launches_by_path"].values())
+    gat["launches_by_path"] = {"loop": loop["launches"]["gather_rows"]}
+    gat["launches"] = loop["launches"]["gather_rows"]
+    gat["densify"] = [{k: d[k] for k in ("iteration", "n_before", "n_after",
+                                         "ms", "gather_ms",
+                                         "gather_launches")}
+                      for d in loop["densify"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "bound_detail")
@@ -865,8 +1451,11 @@ def main() -> int:
                        "full_image_px_agree", "full_image_med_agree",
                        "full_image_contrib_agree")
     bwd_keys = keys + ("max_norm_err", "step_ms", "card_steps_per_s")
+    gat_keys = keys + ("wrapper_ms", "replaces_also", "probe_shape",
+                       "densify")
     print(json.dumps({"kernels": [{k: fwd[k] for k in fwd_keys},
-                                  {k: bwd[k] for k in bwd_keys}]}))
+                                  {k: bwd[k] for k in bwd_keys},
+                                  {k: gat[k] for k in gat_keys}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

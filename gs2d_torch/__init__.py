@@ -12,9 +12,14 @@ training step (``train/step.py``): losses (``ops/ssim.py``), the backward
 compositing kernel (``csrc/rasterize_bwd.cu``, wrapped by
 ``ops/rasterize/kernel_bwd.py``) behind the autograd boundary of
 ``ops/rasterize/api.py``, Adam (``train/optim.py``) and the densification
-statistics (``models/densify.py``). Entry points take a ``device``
-argument that defaults to ``"cuda"``; on a CPU tensor each kernel wrapper
-runs its plain PyTorch version instead.
+statistics (``models/densify.py``) — and the training loop
+(``train/loop.py``): clone, split and prune (``models/densify.py``, every
+row selection through the row-gather kernel ``csrc/gather_rows.cu``,
+wrapped by ``ops/gather.py``), the opacity reset, model init
+(``models/gaussians.py::init_from_pcd``, ``ops/knn.py``) and npz
+checkpoints in the JAX package's schema (``models/io.py``). Entry points
+take a ``device`` argument that defaults to ``"cuda"``; on a CPU tensor
+each kernel wrapper runs its plain PyTorch version instead.
 """
 
 import torch as _torch

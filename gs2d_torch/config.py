@@ -1,13 +1,38 @@
-"""Training hyper-parameters.
+"""Training configuration.
 
-Copy of ``OptimizationParams`` from ``gs2d_tpu/config.py`` (the reference's
-``arguments/__init__.py:47-131`` knob names and defaults), so a JAX
-configuration carries over field for field.
+Copy of ``gs2d_tpu/config.py`` (the reference's ``arguments/__init__.py:
+47-131`` knob names and defaults), so a JAX configuration carries over
+field for field. ``RuntimeParams`` keeps only the fields that mean
+something without capacities; the saved ``cfg_args`` JSON is the JAX
+package's format.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+
+
+@dataclasses.dataclass
+class ModelParams:
+    sh_degree: int = 3
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    data_device: str = "cuda"
+    eval: bool = False
+    render_items: tuple = ("RGB", "Alpha", "Normal", "Depth", "Edge",
+                           "Curvature")
+
+
+@dataclasses.dataclass
+class PipelineParams:
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    depth_ratio: float = 0.0
+    debug: bool = False
 
 
 @dataclasses.dataclass
@@ -31,3 +56,31 @@ class OptimizationParams:
     densify_from_iter: int = 500
     densify_until_iter: int = 15_000
     densify_grad_threshold: float = 0.0002
+
+
+@dataclasses.dataclass
+class RuntimeParams:
+    """Knobs of the port with no reference counterpart."""
+    seed: int = 0                     # camera order and densify noise
+    gt_cache_budget: int = 4 << 30    # device-resident ground truth (B)
+
+
+def save_cfg_args(path: str, model: ModelParams, pipe: PipelineParams,
+                  opt: OptimizationParams) -> None:
+    """JSON config replay, in place of the reference's eval()-based
+    cfg_args (``arguments/__init__.py:135-155``)."""
+    with open(path, "w") as f:
+        json.dump({
+            "model": dataclasses.asdict(model),
+            "pipeline": dataclasses.asdict(pipe),
+            "optimization": dataclasses.asdict(opt),
+        }, f, indent=2, default=list)
+
+
+def load_cfg_args(path: str):
+    with open(path) as f:
+        d = json.load(f)
+    m = ModelParams(**{**d["model"],
+                       "render_items": tuple(d["model"]["render_items"])})
+    return m, PipelineParams(**d["pipeline"]), OptimizationParams(
+        **d["optimization"])

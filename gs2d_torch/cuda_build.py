@@ -17,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-KERNELS = ("rasterize_fwd", "rasterize_bwd")
+KERNELS = ("rasterize_fwd", "rasterize_bwd", "gather_rows")
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "gs2d_torch"

@@ -18,7 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.sh import num_sh_coeffs
+from ..ops.knn import mean_sq_dist3
+from ..ops.sh import num_sh_coeffs, rgb_to_sh
 
 
 @dataclasses.dataclass
@@ -69,6 +70,45 @@ def sh_degree_mask(active_degree: int, max_degree: int,
     deg = torch.floor(torch.sqrt(torch.arange(K, dtype=torch.float32,
                                               device=device)))
     return (deg <= active_degree).to(torch.float32)[:, None]
+
+
+def init_from_pcd(points: np.ndarray, colors: np.ndarray,
+                  max_sh_degree: int = 3,
+                  init_scales: Optional[np.ndarray] = None, seed: int = 0,
+                  device="cuda") -> GaussianState:
+    """The reference ``create_from_pcd`` contract
+    (``gaussian_model.py:124-146``; ``gs2d_tpu/models/gaussians.py:100-144``
+    without capacity): DC features from RGB2SH, log-scales from the mean
+    squared distance to the 3 nearest neighbours (``ops/knn.py``, on
+    ``device``) unless ``init_scales`` is given, rotations from
+    ``np.random.default_rng(seed)`` as the JAX package draws them, and an
+    opacity logit of 0.1, at SH degree 0."""
+    points = np.asarray(points, np.float32)
+    n = points.shape[0]
+    K = num_sh_coeffs(max_sh_degree)
+    rng = np.random.default_rng(seed)
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=device)
+
+    xyz = dev(points)
+    if init_scales is None:
+        d2 = torch.clamp(mean_sq_dist3(xyz), min=1e-7)
+        scaling = torch.log(torch.sqrt(d2))[:, None].repeat(1, 2)
+    else:
+        scaling = dev(init_scales)
+    f32 = np.float32
+    logit = np.log(f32(0.1) / (f32(1.0) - f32(0.1)))
+    params = GaussianParams(
+        xyz=xyz,
+        features_dc=dev(rgb_to_sh(np.asarray(colors, np.float32))[:, None]),
+        features_rest=torch.zeros((n, K - 1, 3), dtype=torch.float32,
+                                  device=device),
+        scaling=scaling,
+        rotation=dev(rng.random((n, 4))),
+        opacity=dev(np.full((n, 1), logit)))
+    return GaussianState(params=params, active_sh_degree=0)
 
 
 def state_from_numpy(xyz, features_dc, features_rest, scaling, rotation,

@@ -1,17 +1,25 @@
-"""Model PLY IO with the exact 3DGS attribute schema
-(reference ``scene/gaussian_model.py:176-255``; ``gs2d_tpu/models/io.py``
-``save_ply``/``load_ply``), so a model ``train.py`` writes renders here.
-Checkpoints with optimizer state come with the training loop."""
+"""Model IO (``gs2d_tpu/models/io.py``).
+
+(a) PLY snapshots with the exact 3DGS attribute schema (reference
+    ``scene/gaussian_model.py:176-255``), so a model ``train.py`` writes
+    renders here;
+(b) the full training state — parameters, Adam moments, densification
+    statistics, step — as an npz in the JAX package's key schema, so a
+    JAX checkpoint resumes in the port and a port checkpoint in the JAX
+    package.
+"""
 
 from __future__ import annotations
 
 import os
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..scene.ply import read_ply, write_ply
-from .gaussians import GaussianParams, GaussianState
+from ..train.optim import FIELDS, AdamState
+from .gaussians import GaussianParams, GaussianState, state_from_numpy
 
 
 def save_ply(state: GaussianState, path: str) -> None:
@@ -67,3 +75,55 @@ def load_ply(path: str, max_sh_degree: int = 3,
         opacity=dev(cols["opacity"][:, None]))
     # a loaded model renders at its full degree (reference load_ply:255)
     return GaussianState(params=params, active_sh_degree=max_sh_degree)
+
+
+def save_checkpoint(path: str, state: GaussianState, opt: AdamState,
+                    iteration: int, spatial_lr_scale: float = 1.0) -> None:
+    """Write the training state in the JAX npz schema
+    (``gs2d_tpu/models/io.py:94-110``): ``p.*``, ``mu.*``, ``nu.*`` per
+    parameter field, ``active`` (all true: the port holds only live
+    rows), ``active_sh_degree``, the three statistics, ``opt_step``,
+    ``iteration`` and ``spatial_lr_scale``. The arrays are stored
+    uncompressed; ``np.load`` reads both forms."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    flat = {f"{name}.{f}": host(getattr(tree, f))
+            for name, tree in (("p", state.params), ("mu", opt.mu),
+                               ("nu", opt.nu)) for f in FIELDS}
+    n = state.params.xyz.shape[0]
+    np.savez(path, **flat,
+             active=np.ones(n, bool),
+             active_sh_degree=np.int32(state.active_sh_degree),
+             max_radii2d=host(state.max_radii2d),
+             grad_accum=host(state.grad_accum),
+             denom=host(state.denom),
+             opt_step=np.int32(opt.step),
+             iteration=np.int64(iteration),
+             spatial_lr_scale=np.float64(spatial_lr_scale))
+
+
+def load_checkpoint(path: str, device="cuda"
+                    ) -> Tuple[GaussianState, AdamState, int, float]:
+    """Read a checkpoint of either package → (state, Adam state,
+    iteration, spatial_lr_scale) on ``device``. Only the rows marked
+    ``active`` are kept (a JAX checkpoint holds capacity padding)."""
+    with np.load(path) as z:
+        act = z["active"]
+        state = state_from_numpy(
+            **{f: z[f"p.{f}"] for f in FIELDS}, active=act,
+            active_sh_degree=z["active_sh_degree"],
+            max_radii2d=z["max_radii2d"], grad_accum=z["grad_accum"],
+            denom=z["denom"], device=device)
+
+        def tree(prefix):
+            return GaussianParams(**{
+                f: torch.as_tensor(np.ascontiguousarray(
+                    z[f"{prefix}.{f}"][act], np.float32), device=device)
+                for f in FIELDS})
+
+        opt = AdamState(mu=tree("mu"), nu=tree("nu"),
+                        step=int(z["opt_step"]))
+        return state, opt, int(z["iteration"]), float(z["spatial_lr_scale"])

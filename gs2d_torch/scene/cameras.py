@@ -10,6 +10,7 @@ held as float32 tensors on the camera's device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,6 +33,18 @@ class Camera:
     @property
     def device(self) -> torch.device:
         return self.world_view.device
+
+
+@dataclasses.dataclass
+class CameraData:
+    """A training view: the camera and its image (the counterpart of
+    ``gs2d_tpu/scene/cameras.py::CameraData``). The training loop uploads
+    ``image`` to its device once and keeps it there."""
+    camera: Camera
+    image: Optional[torch.Tensor] = None        # (3, H, W) float32 in [0, 1]
+    alpha_mask: Optional[torch.Tensor] = None   # (1, H, W) or None
+    image_name: str = ""
+    uid: int = 0
 
 
 def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,

@@ -41,7 +41,9 @@ def test_renderer_imports_with_jax_blocked():
                "sys.modules['jax'] = None\n"
                "sys.modules['gs2d_tpu'] = None\n"
                "import gs2d_torch.render.renderer, gs2d_torch.models.io\n"
-               "import gs2d_torch.train.step\n"
+               "import gs2d_torch.train.step, gs2d_torch.train.loop\n"
+               "import gs2d_torch.ops.gather, gs2d_torch.ops.knn\n"
+               "import gs2d_torch.models.densify, gs2d_torch.config\n"
                "print(sorted(m for m in sys.modules "
                "if m.startswith(('jax', 'gs2d_tpu'))))\n")
     assert out.strip() == "['gs2d_tpu', 'jax']"   # only the blocked stubs
