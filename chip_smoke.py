@@ -9,7 +9,8 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel, compiled together, with the build seconds and
-   each kernel's registers, shared memory and spills;
+   each kernel function's registers, shared memory and spills (ptxas,
+   kept beside each library, so also for a build of an earlier run);
 3. small scenes (seeded), render path: K1 (rasterize_fwd) against its
    plain PyTorch version on the card — all 15 channels within rtol/atol
    2e-4, the median slot equal on >= 99.9% of pixels — the render against
@@ -25,7 +26,11 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
    benchmark camera. Outputs must be finite with real alpha coverage, K1
    must run once per view, and sampled tiles and all of view 0 must agree
    with the plain version. Per view: pairs, stage times (CUDA events) and
-   peak memory;
+   peak memory; at view 0 K1's pair counts (evaluated, warp-padded,
+   tile-padded, the slot ceiling and composited, the last from the plain
+   version), and what the kernels' row test and per-pixel skip leave of
+   them, counted with their plain twins, which must never drop a pair the
+   exact test keeps;
 6. full width, training: one warm-up and TRAIN_STEPS timed steps of
    ``train_step`` at the bench.py train-step point (view 0, lambda_dist
    10, depth_ratio 1, iteration 8000, ground truth from default_rng(1)).
@@ -33,7 +38,8 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
    statistic must be finite and ``denom`` must grow on exactly the visible
    Gaussians. Per step: step and stage times (CUDA events), loss terms and
    peak memory; one profiled step; two backward passes bit-identical; K2
-   against its plain version on sampled tiles and all of view 0;
+   against its plain version on sampled tiles and all of view 0, and K2's
+   pair counts there;
 7. small loop: the card twin of tests/test_loop_e2e.py,
    300 iterations of ``train()`` on three 64x32 views from 12 points;
    densification must grow N past 12, every logged loss be finite and
@@ -56,8 +62,9 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
    gather's share, checkpoint write and read times and peak memory;
 10. one ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths, error, time, plain-version time, library-call time where there
-   is one and the bound computed from this run's inputs (H100 SXM peaks:
-   3.35 TB/s, 67 TFLOP/s FP32);
+   is one, ptxas's report and the bound computed from this run's inputs
+   (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32; K1's and K2's operations
+   on their composited pairs, the pair counts under ``bound_detail``);
 11. the card line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -84,15 +91,15 @@ TOL = 2e-4                         # tests/test_rasterize_fwd.py:79-80
 MED_AGREE = 0.999                  # median flips at T = 0.5 (verify skill)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, FP32 off the tensor cores
-# FP32 operations per evaluated (record, pixel) in rasterize_fwd.cu: the
-# intersection and footprint test before any early skip (a composited
-# record costs ~70 with its accumulations).
-OPS_PER_EVAL = 40
-# The same count for rasterize_bwd.cu, which evaluates the same pairs (up
-# to each pixel's n_contrib) with the same test; a composited pair costs
-# ~150 more for its gradient chain and 22 warp-reduced sums, which the
-# bound leaves out (the outputs do not say how many pairs composited).
-OPS_PER_EVAL_BWD = 40
+# FP32 operations the compositing functions need per (record, pixel),
+# counted from the kernels' source: the geometry and the exact alpha/z test
+# (~40), K1's 13 accumulations and median (~30 more), K2's gradient chain
+# (~150) and its 22 sums. The bounds count them on the composited pairs of
+# this run (the plain versions count them); pairs that do not composite
+# need no work but the cheapest proof of that, which the bound leaves out.
+OPS_PER_TEST = 40
+OPS_PER_COMPOSITED_FWD = 70
+OPS_PER_COMPOSITED_BWD = OPS_PER_TEST + 150 + 22
 GRAD_RTOL, GRAD_ATOL = 1e-3, 5e-4  # tests/test_rasterize_bwd.py:50-57
 DFLD = {"A": slice(0, 3), "B": slice(3, 6), "C": slice(6, 9),
         "c2": slice(9, 12), "opacity": slice(12, 13), "rgb": slice(13, 16),
@@ -222,6 +229,119 @@ def compare_tiles(got, ref, what):
         raise AssertionError(f"{what}: median slot agrees on {agree:.5f} "
                              f"of pixels (< {MED_AGREE})")
     return (out - rout).abs().max().item()
+
+
+def pair_counts(nc, tile_count, composited) -> dict:
+    """The (record, pixel) pairs of a view: evaluated (each pixel up to its
+    n_contrib), warp-padded (a warp runs to its lanes' largest n_contrib),
+    tile-padded (a CTA to its pixels' largest), the slot ceiling (every
+    slot of the tile on every pixel) and composited (alpha >= 1/255,
+    z >= near, up to n_contrib: from the plain version)."""
+    import torch
+    nc = nc.long()
+    count = tile_count.long().clamp(min=0)
+    warp_max = nc.view(nc.shape[0], -1, 32).amax(dim=2)
+    tile_max = torch.minimum(nc.amax(dim=1), count)
+    return {"evaluated_pairs": int(nc.sum()),
+            "warp_padded_pairs": 32 * int(warp_max.sum()),
+            "tile_padded_pairs": nc.shape[1] * int(tile_max.sum()),
+            "slot_ceiling_pairs": nc.shape[1] * int(count.sum()),
+            "composited_pairs": int(composited)}
+
+
+def skip_counts(packed, gid, tile_start, tile_count, width, height) -> dict:
+    """What the kernels' two skips leave of a view's pairs, counted tile by
+    tile with their plain twins (ops/rasterize/common.py) beside the exact
+    test of the plain versions. Per kernel (k1: each pixel up to its freeze,
+    k2: up to its n_contrib): the (record, pixel) pairs walked and those
+    the per-pixel skip passes to the exact test; the (record, warp row)
+    pairs with a walked pixel, those the row test keeps, and those with a
+    pixel past the per-pixel skip. A pair the exact test keeps but a skip
+    drops is a violation."""
+    import torch
+
+    from gs2d_torch.ops.rasterize.common import (
+        ALPHA_CLAMP, ALPHA_CUTOFF, FILTER_INV_SQUARE, NEAR_N, T_EPS, TILE_H,
+        TILE_PX, TILE_W, cdiv, row_may_hit, skip_pair, skip_radius)
+    ntx = cdiv(width, TILE_W)
+    lane = torch.arange(TILE_PX, device=packed.device)
+    rows_y = torch.arange(TILE_H, device=packed.device, dtype=torch.float32)
+    r_all = skip_radius(packed[:, 14])
+    acc = {f"{k}_{w}": 0 for k in ("k1", "k2") for w in (
+        "pixel_pairs", "exact_pairs", "row_pairs", "row_kept",
+        "row_exact")}
+    acc.update(composited=0, skip_violations=0, row_violations=0)
+    for t, (s, c) in enumerate(zip(tile_start.tolist(), tile_count.tolist())):
+        if c <= 0:
+            continue
+        ix = (t % ntx) * TILE_W + lane % TILE_W
+        iy = (t // ntx) * TILE_H + lane // TILE_W
+        inside = ((ix < width) & (iy < height))[None]
+        px, py = ix.float()[None], iy.float()[None]
+        g = gid[s:s + c].long()
+        e = packed[g]
+
+        def col(k):
+            return e[:, k:k + 1]
+
+        p0 = col(0) + px * col(3) + py * col(6)
+        p1 = col(1) + px * col(4) + py * col(7)
+        p2 = col(2) + px * col(5) + py * col(8)
+        p2_ok = torch.abs(p2) > 1e-12
+        p2s = torch.where(p2_ok, p2, torch.ones_like(p2))
+        u, v = p0 / p2s, p1 / p2s
+        dx, dy = px - col(12), py - col(13)
+        rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+        alpha = torch.clamp(col(14) * torch.exp(-0.5 * torch.minimum(
+            u * u + v * v, rho2d)), max=ALPHA_CLAMP)
+        z = u * col(9) + v * col(10) + col(11)
+        ok = inside & p2_ok & (z >= NEAR_N) & (alpha >= ALPHA_CUTOFF)
+        keep = torch.cumprod(1.0 - torch.where(ok, alpha, 0.0), dim=0) \
+            >= T_EPS
+        live = keep & ok
+        slot = torch.arange(c, device=e.device)[:, None]
+        nc = torch.amax(torch.where(live, slot + 1, 0), dim=0)
+        walk = torch.where((~keep).any(dim=0),
+                           torch.argmax((~keep).int(), dim=0) + 1, c)
+        walk = torch.where(inside[0], walk, 0)
+        r = r_all[g]
+        exact = p2_ok & ~skip_pair(p0, p1, p2, rho2d, r[:, None])
+        # the row test for all TILE_H rows at once: (c, TILE_H)
+        rows = row_may_hit(e.repeat(TILE_H, 1), r.repeat(TILE_H),
+                           float((t % ntx) * TILE_W),
+                           (t // ntx) * TILE_H + rows_y.repeat_interleave(c)
+                           ).view(TILE_H, c).T
+        acc["composited"] += int(live.sum())
+        acc["skip_violations"] += int((ok & ~exact).sum())
+        acc["row_violations"] += int((ok.view(c, TILE_H, TILE_W).any(dim=2)
+                                      & ~rows).sum())
+        for tag, lim in (("k1", walk), ("k2", nc)):
+            walked = slot < lim[None]
+            row_walked = walked.view(c, TILE_H, TILE_W).any(dim=2)
+            acc[f"{tag}_pixel_pairs"] += int(lim.sum())
+            acc[f"{tag}_exact_pairs"] += int((walked & exact).sum())
+            acc[f"{tag}_row_pairs"] += int(row_walked.sum())
+            acc[f"{tag}_row_kept"] += int((row_walked & rows).sum())
+            acc[f"{tag}_row_exact"] += int(
+                (walked & exact).view(c, TILE_H, TILE_W).any(dim=2).sum())
+    return acc
+
+
+def ptxas_report(text: str) -> list:
+    """``nvcc -Xptxas -v`` output → per kernel function its registers,
+    shared memory, stack and spills, as ptxas printed them."""
+    out, fn, spill = [], None, ""
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if "Function properties for" in ln:
+            fn, spill = ln.split("Function properties for", 1)[1].strip(), ""
+        elif fn and "spill" in ln:
+            spill = ln
+        elif fn and "registers" in ln:
+            out.append({"function": fn, "used": ln.split(":", 1)[-1].strip(),
+                        "stack_and_spill": spill})
+            fn = None
+    return out
 
 
 def small_scenes(report):
@@ -451,8 +571,9 @@ def full_width(report, state):
         out_t, med, nc = kernel_fwd.rasterize_fwd(*inputs0)
         plain = {}
         report["plain_ms"] = cuda_ms(lambda: plain.__setitem__(
-            "r", kernel_fwd.rasterize_fwd_reference(*inputs0)))
-        pout, pmed, _ = plain["r"]
+            "r", kernel_fwd.rasterize_fwd_reference(
+                *inputs0, return_composited=True)))
+        pout, pmed, _, composited = plain["r"]
         ok_px = torch.isclose(out_t, pout, rtol=TOL, atol=TOL).all(dim=1)
         report["full_image_px_agree"] = ok_px.float().mean().item()
         report["full_image_med_agree"] = (med == pmed).float().mean().item()
@@ -475,14 +596,25 @@ def full_width(report, state):
         packed, gid, ts, tc = inputs0[:4]
         nbytes = sum(x.numel() * x.element_size()
                      for x in (packed, gid, ts, tc, out_t, med, nc))
-        ops = OPS_PER_EVAL * int(nc.sum())
+        pairs = pair_counts(nc, tc, composited)
+        print("pairs K1 view 0 " + json.dumps(pairs), flush=True)
+        t0 = time.time()
+        skips = skip_counts(*inputs0)
+        print(f"skips view 0 ({time.time() - t0:.1f} s) "
+              + json.dumps(skips), flush=True)
+        if skips["skip_violations"] or skips["row_violations"] \
+                or skips["composited"] != composited:
+            raise AssertionError(f"view 0: a skip drops pairs the exact "
+                                 f"test keeps, or the counts differ: {skips}")
+        ops = OPS_PER_COMPOSITED_FWD * composited
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
         report["bound_ms"] = max(t_bytes, t_ops)
         report["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         report["bound_detail"] = {
             "bytes": nbytes, "bytes_ms": t_bytes, "ops": ops,
-            "ops_ms": t_ops,
+            "ops_ms": t_ops, "ops_per_composited": OPS_PER_COMPOSITED_FWD,
+            **pairs,
             "gathered_bytes": gid.numel() * (packed.shape[1] * 4 + 4),
             "gathered_ms": gid.numel() * (packed.shape[1] * 4 + 4)
             / HBM_BYTES_PER_S * 1e3}
@@ -667,7 +799,9 @@ class StageMarks:
     """CUDA events around the train step's stages, by wrapping the
     functions it looks up at call time (train/step.py: render,
     compute_losses, apply_update; ops/rasterize/api.py: rasterize_bwd,
-    reduce_slot_grads). Keeps each stage's last arguments and result."""
+    reduce_slot_grads). Keeps each stage's last arguments and result, and
+    the host's time inside each call with the device memory segments the
+    caching allocator newly took there (cudaMalloc calls)."""
 
     def __init__(self):
         import gs2d_torch.ops.rasterize.api as api
@@ -675,7 +809,7 @@ class StageMarks:
         self.targets = [(step_mod, "render"), (step_mod, "compute_losses"),
                         (api, "rasterize_bwd"), (api, "reduce_slot_grads"),
                         (step_mod, "apply_update")]
-        self.events, self.seen = {}, {}
+        self.events, self.seen, self.host = {}, {}, {}
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n in self.targets]
@@ -690,12 +824,18 @@ class StageMarks:
     def _wrap(self, name, fn):
         import torch
 
+        def segments():
+            return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
         def wrapped(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            segs, t0 = segments(), time.perf_counter()
             start.record()
             res = fn(*args, **kw)
             end.record()
+            self.host[name] = ((time.perf_counter() - t0) * 1e3,
+                               segments() - segs)
             self.events[name] = (start, end)
             self.seen[name] = (args, res)
             return res
@@ -717,6 +857,12 @@ class StageMarks:
             "preprocess_sh_bwd": ms(ev["reduce_slot_grads"][1],
                                     ev["apply_update"][0]),
             "adam_stats": ms(*ev["apply_update"])}
+
+    def host_ms(self):
+        """Per stage of the last step: the host's ms inside the call and
+        the segments newly allocated there."""
+        return {k: {"ms": v[0], "new_segments": v[1]}
+                for k, v in self.host.items()}
 
 
 def full_train(report, state):
@@ -754,9 +900,11 @@ def full_train(report, state):
             denom0 = ts.gaussians.denom
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
             start.record()
             ts, metrics = step(ts, cam, gt, TRAIN_ITER, bg)
             end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
             counts = (kernel_fwd.rasterize_fwd.launches - before[0],
@@ -783,7 +931,8 @@ def full_train(report, state):
                 raise AssertionError(f"step {i}: denom did not grow by one "
                                      f"on exactly the visible Gaussians")
             line = {"step": i, "step_ms": step_ms[-1],
-                    "stage_ms": marks.stage_ms(),
+                    "stage_ms": marks.stage_ms(), "host_ms": host_ms,
+                    "host_stage": marks.host_ms(),
                     "loss": {k: float(metrics[k]) for k in (
                         "total_loss", "l1", "ssim", "loss", "dist_loss",
                         "normal_loss")},
@@ -836,8 +985,11 @@ def full_train(report, state):
                                reps=KERNEL_REPS)
         plain = {}
         report["plain_ms"] = cuda_ms(lambda: plain.__setitem__(
-            "r", kernel_bwd.rasterize_bwd_reference(*bwd_args)))
-        a, b = slot_rows_err(d, plain.pop("r"), "view 0 all tiles K2")
+            "r", kernel_bwd.rasterize_bwd_reference(
+                *bwd_args, return_composited=True)))
+        d_plain, composited = plain.pop("r")
+        a, b = slot_rows_err(d, d_plain, "view 0 all tiles K2")
+        del d_plain
         report["max_abs_err"] = max(report["max_abs_err"], a)
         report["max_norm_err"] = max(report["max_norm_err"], b)
         print(f"view 0 K2 vs plain, all {T} tiles: max abs err {a:.3g} "
@@ -847,15 +999,24 @@ def full_train(report, state):
     # --- bound from this run's inputs --------------------------------------
     nbytes = sum(x.numel() * x.element_size()
                  for x in (packed, gid, tstart, tcount, out, cot, med, nc, d))
-    ops = OPS_PER_EVAL_BWD * int(nc.sum())
+    pairs = pair_counts(nc, tcount, composited)
+    print("pairs K2 view 0 " + json.dumps(pairs), flush=True)
+    ops = OPS_PER_COMPOSITED_BWD * composited
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
+    # the test on every evaluated pair as well: the count of the earlier
+    # bound, kept beside it
+    ops_eval = OPS_PER_TEST * pairs["evaluated_pairs"] \
+        + (OPS_PER_COMPOSITED_BWD - OPS_PER_TEST) * composited
     report["bound_ms"] = max(t_bytes, t_ops)
     report["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    report["bound_detail"] = {"bytes": nbytes, "bytes_ms": t_bytes,
-                              "ops": ops, "ops_ms": t_ops,
-                              "evaluated_pairs": int(nc.sum()),
-                              "max_n_contrib": int(nc.max())}
+    report["bound_detail"] = {
+        "bytes": nbytes, "bytes_ms": t_bytes, "ops": ops, "ops_ms": t_ops,
+        "ops_per_composited": OPS_PER_COMPOSITED_BWD,
+        "ops_testing_every_evaluated_pair": ops_eval,
+        "ops_testing_every_evaluated_pair_ms":
+            ops_eval / FP32_OPS_PER_S * 1e3,
+        **pairs, "max_n_contrib": int(nc.max())}
 
 
 def gather_bytes(table, idx) -> int:
@@ -1395,28 +1556,32 @@ def main() -> int:
 
     from gs2d_torch import cuda_build
     t0 = time.time()
-    reports = cuda_build.build_all()
-    print(f"build: {time.time() - t0:.1f} s", flush=True)
-    for name, text in reports.items():
-        for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  {name}: {ln.strip()}")
+    built = cuda_build.build_all()
+    print(f"build: {time.time() - t0:.1f} s ({len(built)} of "
+          f"{len(cuda_build.KERNELS)} kernels compiled now)", flush=True)
+    ptxas = {name: ptxas_report(cuda_build.compiler_report(name))
+             for name in cuda_build.KERNELS}
+    for name, funcs in ptxas.items():
+        for f in funcs:
+            print(f"  ptxas {name}: {f['function']}: {f['used']}; "
+                  f"{f['stack_and_spill']}", flush=True)
 
     fwd = {"name": "rasterize_fwd", "route": "cuda",
            "source": "gs2d_torch/csrc/rasterize_fwd.cu",
            "replaces": "gs2d_tpu/ops/rasterize/kernel_fwd.py:201",
-           "library_ms": None}
+           "library_ms": None, "ptxas": ptxas.get("rasterize_fwd")}
     bwd = {"name": "rasterize_bwd", "route": "cuda",
            "source": "gs2d_torch/csrc/rasterize_bwd.cu",
            "replaces": "gs2d_tpu/ops/rasterize/kernel_bwd.py:281",
-           "library_ms": None}
+           "library_ms": None, "ptxas": ptxas.get("rasterize_bwd")}
     gat = {"name": "gather_rows", "route": "cuda",
            "source": "gs2d_torch/csrc/gather_rows.cu",
            "replaces": "scripts/probe_gather_kernel.py:80",
            "replaces_also": ["scripts/probe_gather_kernel.py:106",
                              "scripts/probe_gather_kernel.py:144",
                              "scripts/probe_gather_kernel2.py:57",
-                             "scripts/probe_gather_kernel2.py:83"]}
+                             "scripts/probe_gather_kernel2.py:83"],
+           "ptxas": ptxas.get("gather_rows")}
     fwd["max_abs_err"] = small_scenes(fwd)
     small_train(bwd)
     state = bench_state()
@@ -1446,7 +1611,7 @@ def main() -> int:
                       for d in loop["densify"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path", "bound_detail")
+            "launches_by_path", "bound_detail", "ptxas")
     fwd_keys = keys + ("plain_ms_small", "kernel_ms_small",
                        "full_image_px_agree", "full_image_med_agree",
                        "full_image_contrib_agree")

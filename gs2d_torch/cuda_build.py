@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface; ``nvcc`` compiles it into
 ``build/gs2d_torch/lib<name>-<hash>.so`` beside the package at first use
-(the hash covers the source and the flags, so an edit rebuilds). Nothing
+(the hash covers the source, every ``csrc/*.cuh`` header and the flags, so
+an edit to any of them rebuilds). Nothing
 is compiled when a module is imported: the CPU tests import every module
 on machines without ``nvcc``.
 """
@@ -38,16 +39,19 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=KERNELS) -> dict:
     """Compile every kernel not yet built, one ``nvcc`` per source, all
     started together. Returns {name: compiler report} (``ptxas -v``
-    register and shared-memory use) for the ones compiled now; raises
-    with the compiler's output if any build fails."""
+    register and shared-memory use) for the ones compiled now, and keeps
+    each report beside its library (``compiler_report``); raises with the
+    compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -66,11 +70,22 @@ def build_all(names=KERNELS) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{report}")
             continue
+        lib.with_suffix(".txt").write_text(report)
         os.replace(tmp, lib)
         reports[name] = report
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def compiler_report(name: str) -> str:
+    """The ``nvcc`` output (``ptxas -v``) of kernel ``name``'s built
+    library, building it if needed ("" for a library built without one)."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        build_all((name,))
+    report = lib.with_suffix(".txt")
+    return report.read_text() if report.exists() else ""
 
 
 @functools.cache

@@ -89,6 +89,8 @@ def rasterize_bwd(packed: torch.Tensor, gid: torch.Tensor,
         raise ValueError("rasterize_bwd indexes records and slots as int32")
     args = [x.contiguous() for x in (packed, gid, tile_start, tile_count,
                                      out, cot, med_idx, n_contrib)]
+    if args[0].data_ptr() % 16:
+        args[0] = args[0].clone()   # the kernel stages rows in 16-byte copies
     fn = _kernel()
     dev = packed.device
     d_slots = torch.empty((gid.shape[0], DENTRY_F), dtype=torch.float32,
@@ -111,7 +113,8 @@ def rasterize_bwd_reference(packed: torch.Tensor, gid: torch.Tensor,
                             tile_start: torch.Tensor, tile_count: torch.Tensor,
                             out: torch.Tensor, cot: torch.Tensor,
                             med_idx: torch.Tensor, n_contrib: torch.Tensor,
-                            width: int, height: int, tiles=None):
+                            width: int, height: int, tiles=None,
+                            return_composited: bool = False):
     """Plain PyTorch version of ``rasterize_bwd``, one tile at a time.
 
     Per tile the (records × pixels) terms are vectorized, in the kernel's
@@ -120,7 +123,9 @@ def rasterize_bwd_reference(packed: torch.Tensor, gid: torch.Tensor,
     composite multiply by exactly 1), the prefix of w·dw a ``cumsum``. The
     clamp's rule is its own (no gradient where opacity·G >= 0.99), not
     autograd's. ``tiles`` (a sequence of tile ids) restricts the result to
-    the rows of those tiles' slot ranges, concatenated in that order."""
+    the rows of those tiles' slot ranges, concatenated in that order. With
+    ``return_composited`` it also returns the number of (record, pixel)
+    pairs that carry a gradient (``live``), an int."""
     T = _check_bwd_inputs(packed, gid, tile_start, tile_count, out, cot,
                           med_idx, n_contrib, width, height)
     dev = packed.device
@@ -133,6 +138,7 @@ def rasterize_bwd_reference(packed: torch.Tensor, gid: torch.Tensor,
 
     lane = torch.arange(TILE_PX, device=dev)
     rows = []
+    composited = torch.zeros((), dtype=torch.int64, device=dev)
     for t in tiles:
         s = starts[t]
         c = max(0, min(counts[t], P - s))
@@ -182,6 +188,8 @@ def rasterize_bwd_reference(packed: torch.Tensor, gid: torch.Tensor,
         slot = torch.arange(lim, device=dev)[:, None]
         live = (slot < n_contrib[t][None]) & p2_ok & (z >= NEAR_N) \
             & (alpha >= ALPHA_CUTOFF)
+        if return_composited:
+            composited += live.sum()
 
         a = torch.where(live, alpha, torch.zeros_like(alpha))
         p_incl = torch.cumprod(1.0 - a, dim=0)
@@ -228,6 +236,8 @@ def rasterize_bwd_reference(packed: torch.Tensor, gid: torch.Tensor,
                 dp0 * py, dp1 * py, dp2 * py, dz * u_s, dz * v_s, dz, dopa]
         cols += [w * g[ch] for ch in (0, 1, 2, 5, 6, 7, 10, 11, 12)]
         d[:lim] = torch.stack([x.sum(dim=1) for x in cols], dim=1)
-    if not rows:
-        return torch.zeros((0, DENTRY_F), dtype=torch.float32, device=dev)
-    return torch.cat(rows)
+    d_slots = torch.cat(rows) if rows else torch.zeros(
+        (0, DENTRY_F), dtype=torch.float32, device=dev)
+    if return_composited:
+        return d_slots, int(composited)
+    return d_slots

@@ -85,6 +85,8 @@ def rasterize_fwd(packed: torch.Tensor, gid: torch.Tensor,
     if packed.shape[0] >= 2 ** 31 or gid.shape[0] >= 2 ** 31:
         raise ValueError("rasterize_fwd indexes records and slots as int32")
     packed, gid = packed.contiguous(), gid.contiguous()
+    if packed.data_ptr() % 16:
+        packed = packed.clone()   # the kernel stages rows in 16-byte copies
     tile_start, tile_count = tile_start.contiguous(), tile_count.contiguous()
     fn = _kernel()
     dev = packed.device
@@ -109,7 +111,8 @@ rasterize_fwd.launches = 0   # kernel launches since the last reset
 
 def rasterize_fwd_reference(packed: torch.Tensor, gid: torch.Tensor,
                             tile_start: torch.Tensor, tile_count: torch.Tensor,
-                            width: int, height: int, tiles=None):
+                            width: int, height: int, tiles=None,
+                            return_composited: bool = False):
     """Plain PyTorch version of ``rasterize_fwd``, one tile at a time.
 
     Per tile the (records × pixels) geometry is vectorized; transmittance
@@ -117,7 +120,8 @@ def rasterize_fwd_reference(packed: torch.Tensor, gid: torch.Tensor,
     prefix (the running product only falls), so the exclusive product of
     a kept record equals the kernel's sequential T, multiplied in the
     same order. ``tiles`` (a sequence of tile ids) restricts the output
-    to those tiles, in that order."""
+    to those tiles, in that order. With ``return_composited`` a fourth
+    value is the number of composited (record, pixel) pairs, an int."""
     T = _check_inputs(packed, gid, tile_start, tile_count, width, height)
     dev = packed.device
     ntx = cdiv(width, TILE_W)
@@ -133,6 +137,7 @@ def rasterize_fwd_reference(packed: torch.Tensor, gid: torch.Tensor,
                          device=dev)
     n_contrib = torch.zeros((len(tiles), TILE_PX), dtype=torch.int32,
                             device=dev)
+    composited = torch.zeros((), dtype=torch.int64, device=dev)
     for i, t in enumerate(tiles):
         s = starts[t]
         c = max(0, min(counts[t], P - s))
@@ -200,4 +205,8 @@ def rasterize_fwd_reference(packed: torch.Tensor, gid: torch.Tensor,
         med_idx[i] = last_med.to(torch.int32)
         n_contrib[i] = torch.amax(torch.where(live, slot + 1, 0),
                                   dim=0).to(torch.int32)
+        if return_composited:
+            composited += live.sum()
+    if return_composited:
+        return out, med_idx, n_contrib, int(composited)
     return out, med_idx, n_contrib

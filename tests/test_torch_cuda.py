@@ -168,6 +168,64 @@ def test_bwd_kernel_matches_plain_version(cuda):
     assert torch.equal(kernel_bwd.rasterize_bwd(*args), d)
 
 
+@pytest.mark.parametrize("opacity", [0.0045, 0.01])
+def test_kernels_at_the_cutoff(cuda, opacity):
+    """Every splat at an opacity just above the alpha cutoff (0.0045) or at
+    the reset's cap (0.01), where the kernels' row test and per-pixel skip
+    leave out nearly every pair and the kept ones sit at the cutoff: K1's
+    n_contrib and med_idx and K2's rows agree with the plain versions at
+    the bars of the random scenes above."""
+    cam, (m, s, q, o, c) = _scene(cuda, n=1500, seed=5)
+    pre = preprocess(m, s * 3.0, q, torch.full_like(o, opacity),
+                     cam.world_view, cam.full_proj, cam.campos, cam.width,
+                     cam.height, colors=c)
+    b = bin_gaussians(pre.center2d, pre.extent, pre.depth, pre.visible,
+                      cam.width, cam.height)
+    fargs = (pack_entries(pre), b.gid, b.tile_start, b.tile_count,
+             cam.width, cam.height)
+    out, med, nc = kernel_fwd.rasterize_fwd(*fargs)
+    torch.cuda.synchronize()
+    rout, rmed, rnc, composited = kernel_fwd.rasterize_fwd_reference(
+        *fargs, return_composited=True)
+    assert composited > 1000
+    torch.testing.assert_close(out, rout, rtol=TOL, atol=TOL)
+    assert (med == rmed).float().mean() >= 0.999
+    assert (nc == rnc).float().mean() >= 0.999
+    cot = torch.as_tensor(np.random.default_rng(2).normal(
+        size=tuple(out.shape)).astype(np.float32), device=cuda)
+    args = fargs[:4] + (out, cot, med, nc, cam.width, cam.height)
+    d = kernel_bwd.rasterize_bwd(*args)
+    ref = kernel_bwd.rasterize_bwd_reference(*args)
+    for sl in (slice(0, 3), slice(3, 6), slice(6, 9), slice(9, 12),
+               slice(12, 13), slice(13, 16), slice(16, 19), slice(19, 22)):
+        _grad_bar(d[:, sl], ref[:, sl], f"columns {sl}")
+    assert torch.equal(kernel_bwd.rasterize_bwd(*args), d)
+
+
+def test_unaligned_records_are_copied_by_the_wrappers(cuda):
+    """A record table that does not start on a 16-byte boundary, which the
+    kernels' 16-byte copies cannot stage, is copied by the wrappers first:
+    the same outputs as from an aligned copy of it."""
+    cam, (m, s, q, o, c) = _scene(cuda, n=400, seed=6)
+    pre = preprocess(m, s, q, o, cam.world_view, cam.full_proj, cam.campos,
+                     cam.width, cam.height, colors=c)
+    b = bin_gaussians(pre.center2d, pre.extent, pre.depth, pre.visible,
+                      cam.width, cam.height)
+    packed = pack_entries(pre)
+    odd = torch.empty(packed.numel() + 1, device=cuda)[1:].view_as(packed)
+    odd.copy_(packed)
+    assert odd.data_ptr() % 16 != 0
+    rest = (b.gid, b.tile_start, b.tile_count, cam.width, cam.height)
+    got, want = kernel_fwd.rasterize_fwd(odd, *rest), \
+        kernel_fwd.rasterize_fwd(packed, *rest)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    cot = torch.ones_like(want[0])
+    bargs = (want[0], cot, want[1], want[2], cam.width, cam.height)
+    assert torch.equal(kernel_bwd.rasterize_bwd(odd, *rest[:3], *bargs),
+                       kernel_bwd.rasterize_bwd(packed, *rest[:3], *bargs))
+
+
 def _state(dev, n=300):
     cam, (m, s, q, o, c) = _scene(dev, n=n)
     state = GaussianState(GaussianParams(
