@@ -4,8 +4,9 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
 (``gs2d_torch.render.renderer.render``), the training step
-(``gs2d_torch.train.step.make_train_step``) and the training loop
-(``gs2d_torch.train.loop.train``) on the card:
+(``gs2d_torch.train.step.make_train_step``), the training loop
+(``gs2d_torch.train.loop.train``) and the data path (the train, render
+and metrics CLIs on a dataset on disk) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel, compiled together, with the build seconds and
@@ -60,12 +61,32 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
    moments; the checkpoint written at 3100 resumes 5 steps bit for bit.
    Prints per-window step times and pairs, densify and reset times, the
    gather's share, checkpoint write and read times and peak memory;
-10. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+10. the data path, through the CLIs' ``main(argv)``
+   (``gs2d_torch.cli.train``, ``.render``, ``.metrics``): a COLMAP
+   dataset of 64 1920x1080 views of the 300k-surfel procedural scene
+   (binary sparse/0, RGB PNGs by the port's encoder, a 30k-point seed
+   cloud) is written under build/chip_smoke/, with the PNG codec's host
+   times (decode of Sub and of Paeth rows, resize, encode); a small
+   Blender RGBA scene is written and loaded through ``Scene``; the train
+   CLI runs 1000 iterations with --eval (1600x900, 56 train / 8 test
+   views, densify at 600-1000; gates: loss falls, N grows, held-out PSNR
+   at 1000 above iteration 1's by PSNR_GAIN_DB, K1 and K2 once per step,
+   each densify bit-identical to its replay through the plain gather);
+   the render CLI renders and meshes at its defaults (bounded, 640³;
+   gate: the median distance of the mesh's vertices to the nearest true
+   surfel under MESH_MEDIAN) and unbounded at UNBOUNDED_RES, printing ms
+   per view, integrate ms per view and marching s; the metrics CLI's
+   results.json must be within METRICS_PSNR_DB of the train report. K1,
+   K2 and the gather are counted from zero around the train CLI, K1
+   around the render CLI; the latest K1 and K2 calls of the train CLI and
+   the latest K1 call of the render CLI are launched again on their
+   arguments and held against the plain versions on sampled tiles;
+11. one ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths, error, time, plain-version time, library-call time where there
    is one, ptxas's report and the bound computed from this run's inputs
    (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32; K1's and K2's operations
    on their composited pairs, the pair counts under ``bound_detail``);
-11. the card line, then ``{"ok": true, "device": {...}}`` as the last
+12. the card line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Any failure exits non-zero before the last line is printed; so does a
@@ -120,6 +141,26 @@ SMALL_LOOP = dict(iterations=300, densify_from_iter=20,
 # (size threshold 0) and 3100 (threshold 20), the opacity reset at 3000
 LOOP_FROM, LOOP_TO = 2900, 3100
 RESUME_STEPS = 5
+# the data path: a COLMAP dataset of DATA_VIEWS 1920x1080 views of the
+# 300k-surfel procedural scene (scripts/make_synthetic_scene.py's rich
+# preset), trained DATA_ITERS iterations through the train CLI
+DATA_VIEWS = 64
+DATA_SURFELS = 300_000
+DATA_ITERS = 1000
+UNBOUNDED_RES = 512                # render.py's default 1024, cut
+# gates set a little past the readings of this phase, which came out the
+# same in each of five runs (H100 80GB HBM3, 700 W): held-out PSNR 10.30
+# -> 24.90 dB (+14.60); the bounded mesh's vertices 0.2204 from the
+# nearest true surfel at the median, 0.1203 within radius 3.5 (the torus
+# and the disc; the rest is the radius-6 background shell); the same
+# meshing of the true surfels 0.0082 and 0.0079 (the 640³ voxel is 0.02),
+# so the gap is the 1000-iteration model's depth, not the meshing
+PSNR_GAIN_DB = 13.5                # held-out PSNR at 1000 over iteration 1
+METRICS_PSNR_DB = 0.3              # results.json against the train report
+MESH_MEDIAN = 0.25                 # bounded mesh → nearest true surfel
+MESH_MEDIAN_INNER = 0.14           # the same within INNER_RADIUS
+MESH_MEDIAN_TRUTH = 0.02           # the true surfels' mesh, both medians
+INNER_RADIUS = 3.5
 
 
 def card_line() -> str:
@@ -479,7 +520,6 @@ def bench_camera(theta_deg=0.0):
 
 def full_width(report, state):
     """Phase 5: the 1M-splat scene at 1080p through render()."""
-    import numpy as np
     import torch
 
     from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
@@ -546,9 +586,7 @@ def full_width(report, state):
                                      f"{res['num_pairs']}")
             # sampled tiles against the plain version: the busiest tile,
             # then a seeded sample
-            T = out_t.shape[0]
-            tiles = [int(bins.tile_count.argmax())] + np.random.default_rng(
-                v).choice(T, SAMPLED_TILES, replace=False).tolist()
+            tiles = sampled_tiles(bins.tile_count, v)
             ref = kernel_fwd.rasterize_fwd_reference(*args, tiles=tiles)
             idx = torch.as_tensor(tiles, device="cuda")
             err = max(err, compare_tiles((out_t[idx], med[idx], nc[idx]),
@@ -971,8 +1009,7 @@ def full_train(report, state):
     with torch.no_grad():
         d = kernel_bwd.rasterize_bwd(*bwd_args)
         T = out.shape[0]
-        tiles = [int(tcount.argmax())] + np.random.default_rng(0).choice(
-            T, SAMPLED_TILES, replace=False).tolist()
+        tiles = sampled_tiles(tcount, 0)
         idx = torch.cat([torch.arange(int(tstart[t]),
                                       int(tstart[t] + tcount[t]),
                                       device="cuda") for t in tiles])
@@ -1119,8 +1156,8 @@ def gather_phase(report, table0, gid0):
 
 
 class LoopScene:
-    """The in-memory scene ``gs2d_torch.train.loop.train`` takes (the
-    dataset loaders are not ported yet)."""
+    """An in-memory scene for ``gs2d_torch.train.loop.train``, in place
+    of a dataset on disk."""
 
     def __init__(self, gaussians, cameras_extent, model_path, cams):
         self.gaussians = gaussians
@@ -1395,8 +1432,6 @@ def full_loop(report, state):
                                    PipelineParams, RuntimeParams)
     from gs2d_torch.models.gaussians import GaussianParams, GaussianState
     from gs2d_torch.models.io import load_checkpoint, save_checkpoint
-    from gs2d_torch.ops.gather import gather_rows
-    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
     from gs2d_torch.render.renderer import render
     from gs2d_torch.scene.cameras import CameraData
     from gs2d_torch.train.loop import train
@@ -1436,9 +1471,7 @@ def full_loop(report, state):
 
     # --- the main path: counts from zero, train() from the checkpoint ------
     logs = []
-    kernel_fwd.rasterize_fwd.launches = 0
-    kernel_bwd.rasterize_bwd.launches = 0
-    gather_rows.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1452,9 +1485,7 @@ def full_loop(report, state):
         torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {"rasterize_fwd": kernel_fwd.rasterize_fwd.launches,
-                "rasterize_bwd": kernel_bwd.rasterize_bwd.launches,
-                "gather_rows": gather_rows.launches}
+    launches = read_counts()
     n_steps = LOOP_TO - LOOP_FROM
     if [s[0] for s in probe.steps] != list(range(LOOP_FROM + 1,
                                                  LOOP_TO + 1)):
@@ -1539,6 +1570,433 @@ def full_loop(report, state):
                   peak_gib=peak)
 
 
+class CallTimer:
+    """Replaces ``module.name`` (looked up at call time) with a wrapper
+    that times each call on the host around a device synchronize, and
+    counts it; restores it on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.ms = module, name, []
+
+    def __enter__(self):
+        import torch
+        self.real = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.last_args = args
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def stats(self) -> dict:
+        if not self.ms:
+            return {"calls": 0}
+        return {"calls": len(self.ms), "mean_ms": sum(self.ms) / len(self.ms),
+                "min_ms": min(self.ms), "max_ms": max(self.ms),
+                "total_s": sum(self.ms) / 1e3}
+
+
+class LastCall:
+    """Replaces ``module.name`` (looked up at call time) with a wrapper
+    that keeps the arguments of the latest call, adding no synchronize;
+    restores it on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args = module, name, None
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def kept(*args):
+            self.args = args
+            return self.real(*args)
+        setattr(self.module, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def sampled_tiles(tile_count, seed) -> list:
+    """The busiest tile, then SAMPLED_TILES seeded ones."""
+    import numpy as np
+    return [int(tile_count.argmax())] + np.random.default_rng(seed).choice(
+        tile_count.shape[0], SAMPLED_TILES, replace=False).tolist()
+
+
+def hold_fwd(args, seed, what) -> float:
+    """K1 launched again on the arguments of a call of a main path, held
+    against its plain version on sampled tiles → max abs error."""
+    import torch
+
+    from gs2d_torch.ops.rasterize import kernel_fwd
+    with torch.no_grad():
+        out, med, nc = kernel_fwd.rasterize_fwd(*args)
+        tiles = sampled_tiles(args[3], seed)
+        ref = kernel_fwd.rasterize_fwd_reference(*args, tiles=tiles)
+        idx = torch.as_tensor(tiles, device=out.device)
+        return compare_tiles((out[idx], med[idx], nc[idx]), ref, what)
+
+
+def hold_bwd(args, seed, what):
+    """K2 launched again on the arguments of a call of a main path, held
+    against its plain version on the slots of sampled tiles → (max abs,
+    max normalised error)."""
+    import torch
+
+    from gs2d_torch.ops.rasterize import kernel_bwd
+    tstart, tcount = args[2], args[3]
+    with torch.no_grad():
+        d = kernel_bwd.rasterize_bwd(*args)
+        tiles = sampled_tiles(tcount, seed)
+        idx = torch.cat([torch.arange(int(tstart[t]),
+                                      int(tstart[t] + tcount[t]),
+                                      device=d.device) for t in tiles])
+        return slot_rows_err(d[idx], kernel_bwd.rasterize_bwd_reference(
+            *args, tiles=tiles), what)
+
+
+def zero_counts():
+    from gs2d_torch.ops.gather import gather_rows
+    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    kernel_fwd.rasterize_fwd.launches = 0
+    kernel_bwd.rasterize_bwd.launches = 0
+    gather_rows.launches = 0
+
+
+def read_counts() -> dict:
+    from gs2d_torch.ops.gather import gather_rows
+    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    return {"rasterize_fwd": kernel_fwd.rasterize_fwd.launches,
+            "rasterize_bwd": kernel_bwd.rasterize_bwd.launches,
+            "gather_rows": gather_rows.launches}
+
+
+def codec_times(path: str, work: Path) -> dict:
+    """Host ms of the port's PNG codec on one 1920x1080 view: decode as
+    written (Sub rows: the row path), decode of the same pixels with Paeth
+    on every row (the anti-diagonal wavefront, as photos' PNGs need),
+    resize to the default policy's 1600x900, and encode (Sub, zlib 1)."""
+    import numpy as np
+
+    from gs2d_torch.scene import images
+
+    def ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best, out
+
+    dec_ms, img = ms(lambda: images.decode_png(path))
+    paeth = str(work / "paeth.png")
+    enc_paeth_ms, _ = ms(lambda: images.encode_png(paeth, img, 4), 1)
+    wave_ms, img2 = ms(lambda: images.decode_png(paeth))
+    res_ms, small = ms(lambda: images.resize(img, 1600, 900))
+    enc_ms, _ = ms(lambda: images.encode_png(str(work / "sub.png"), small,
+                                             1, level=1))
+    if not np.array_equal(img, img2) or small.shape != (900, 1600, 3):
+        raise AssertionError("codec: the Paeth copy decodes differently or "
+                             "the resize has the wrong shape")
+    return {"decode_sub_ms": dec_ms, "decode_paeth_wavefront_ms": wave_ms,
+            "encode_paeth_1080p_ms": enc_paeth_ms, "resize_ms": res_ms,
+            "encode_sub_level1_900p_ms": enc_ms}
+
+
+def blender_check(work: Path, surf) -> dict:
+    """A small Blender RGBA scene (200x150, 4 train + 2 test views on a
+    white background, no seed cloud) written by the port, loaded through
+    Scene on the card: counts, shapes, alpha masks, the composite over
+    white where alpha is 0, and the loader's random 100k init."""
+    import math
+
+    import torch
+
+    from gs2d_torch.config import ModelParams
+    from gs2d_torch.scene.scene import Scene
+    from gs2d_torch.utils import synthetic_scene as ss
+
+    path = work / "blender"
+    renderer = ss.SurfelRenderer(surf)
+    ss.write_blender_scene(str(path), renderer, 200, 150, 4, 2,
+                           fovx=math.radians(70.0), white_background=True)
+    scene = Scene(ModelParams(source_path=str(path), sh_degree=3,
+                              white_background=True, eval=True), seed=0)
+    train, test = scene.get_train_cameras(), scene.get_test_cameras()
+    if (len(train), len(test)) != (4, 2):
+        raise AssertionError(f"blender scene: {len(train)} train, "
+                             f"{len(test)} test views")
+    for cd in train + test:
+        if tuple(cd.image.shape) != (3, 150, 200) \
+                or tuple(cd.alpha_mask.shape) != (1, 150, 200) \
+                or cd.camera.device.type != "cuda":
+            raise AssertionError(f"blender view {cd.image_name}: image "
+                                 f"{tuple(cd.image.shape)}, camera on "
+                                 f"{cd.camera.device}")
+        empty = cd.alpha_mask[0] == 0
+        if not bool((cd.image[:, empty] == 1.0).all()):
+            raise AssertionError("blender: alpha-0 pixels not white")
+    g = scene.gaussians
+    if g.params.xyz.shape[0] != 100_000 or g.params.xyz.device.type != \
+            "cuda" or not torch.isfinite(g.params.scaling).all():
+        raise AssertionError("blender: the random 100k init is off")
+    cover = float(torch.stack([cd.alpha_mask.mean() for cd in train]).mean())
+    return {"train": len(train), "test": len(test), "size": [200, 150],
+            "alpha_cover": cover, "init_points": g.params.xyz.shape[0],
+            "extent": scene.cameras_extent}
+
+
+def data_path(report):
+    """Phase 10: the data path on a dataset on disk, through the CLIs'
+    ``main(argv)``: write a COLMAP dataset of DATA_VIEWS 1920x1080 views
+    (binary sparse/0, PINHOLE, RGB PNGs by the port's encoder) rendered
+    from DATA_SURFELS surfels with the procedural colours and a 30k-point
+    seed cloud; train DATA_ITERS iterations with --eval (1600x900, 56
+    train / 8 test views, densify at 600-1000); render and mesh (bounded
+    at the defaults, 640³; unbounded at UNBOUNDED_RES); score. Counts
+    from zero around the train and the render CLI; the kernels held
+    against their plain versions at this path's shapes (K1 and K2 from
+    the train CLI, K1 from the render CLI, every densify through the
+    plain gather). ``report`` gets the counts and K1's and K2's errors."""
+    import json as _json
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    import gs2d_torch.ops.rasterize.api as api
+    import gs2d_torch.render.extract as extract_mod
+    import gs2d_torch.train.loop as loop_mod
+    from gs2d_torch.cli import metrics as metrics_cli
+    from gs2d_torch.cli import render as render_cli
+    from gs2d_torch.cli import train as train_cli
+    from gs2d_torch.ops.sh import rgb_to_sh
+    from gs2d_torch.render.extract import GaussianExtractor
+    from gs2d_torch.scene.ply import read_mesh_ply
+    from gs2d_torch.utils import synthetic_scene as ss
+
+    work = ROOT / "build" / "chip_smoke" / "data_path"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data, model = work / "colmap", work / "model"
+
+    # --- 1. the datasets ----------------------------------------------------
+    t0 = time.perf_counter()
+    surf = ss.rich_surfels(DATA_SURFELS)
+    renderer = ss.SurfelRenderer(surf)
+    ss.write_colmap_scene(str(data), renderer, WIDTH, HEIGHT, DATA_VIEWS,
+                          seed_points=ss.seed_cloud(surf[0], surf[4]))
+    write_s = time.perf_counter() - t0
+    del renderer
+    codec = codec_times(str(data / "images" / "000.png"), work)
+    print(f"data path: wrote {DATA_VIEWS} views {WIDTH}x{HEIGHT} in "
+          f"{write_s:.1f} s; codec " + json.dumps(codec), flush=True)
+    blender = blender_check(work, surf)
+    print("data path blender " + json.dumps(blender), flush=True)
+
+    # --- 2. train: counts from zero, the train CLI --------------------------
+    seen = {}
+    real_scene = loop_mod.Scene
+
+    def scene_probe(*args, **kw):
+        t = time.perf_counter()
+        seen["scene"] = real_scene(*args, **kw)
+        seen["load_s"] = time.perf_counter() - t
+        return seen["scene"]
+
+    zero_counts()
+    loop_mod.Scene = scene_probe
+    try:
+        t0 = time.perf_counter()
+        with LoopProbe() as probe, LastCall(api, "rasterize_fwd") as k1, \
+                LastCall(api, "rasterize_bwd") as k2:
+            res = train_cli.main([
+                "-s", str(data), "-m", str(model), "--eval",
+                "--iterations", str(DATA_ITERS), "--test_iterations", "1",
+                str(DATA_ITERS), "--save_iterations", str(DATA_ITERS),
+                "--checkpoint_iterations", str(DATA_ITERS), "--quiet"])
+            torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        loop_mod.Scene = real_scene
+    train_counts = read_counts()
+    # the kernels at this path's shapes (1600x900, the densified N): the
+    # latest K1 and K2 calls of the train CLI against their plain versions;
+    # every densify was replayed through the plain gather by the probe
+    report["fwd_err"] = hold_fwd(k1.args, 0, "data path train K1")
+    report["bwd_err"] = hold_bwd(k2.args, 0, "data path train K2")
+    del k1, k2
+    if [d["iteration"] for d in probe.densify] != list(
+            range(600, DATA_ITERS + 1, 100)) or train_counts["gather_rows"] \
+            != sum(d["gather_launches"] for d in probe.densify):
+        raise AssertionError(f"data path densify {probe.densify}, gather "
+                             f"launches {train_counts['gather_rows']}")
+    for d in probe.densify:
+        print("data path densify " + json.dumps(d), flush=True)
+    print(f"data path kernels at the train CLI's shapes: K1 max abs err "
+          f"{report['fwd_err']:.3g}, K2 {report['bwd_err'][0]:.3g} "
+          f"(normalised {report['bwd_err'][1]:.3g}); "
+          f"{len(probe.densify)} densifies bit-identical to their replays "
+          "through the plain gather", flush=True)
+    scene = seen.pop("scene")
+    tr, te = scene.get_train_cameras(), scene.get_test_cameras()
+    shapes = {tuple(c.image.shape) for c in tr + te}
+    n0 = len(scene.scene_info.point_cloud[0])
+    del scene
+    wins = res["windows"]
+    for w in wins:
+        print("data path train window " + json.dumps(w), flush=True)
+    p1, p_end = res["psnr"][1], res["psnr"][DATA_ITERS]
+    n_end = wins[-1]["points"]
+    if (len(tr), len(te)) != (56, 8) or shapes != {(3, 900, 1600)}:
+        raise AssertionError(f"data path: {len(tr)} train / {len(te)} test "
+                             f"views of {shapes}")
+    if train_counts["rasterize_fwd"] < DATA_ITERS \
+            or train_counts["rasterize_bwd"] != DATA_ITERS \
+            or train_counts["gather_rows"] == 0:
+        raise AssertionError(f"data path train launches {train_counts}")
+    if not all(math.isfinite(w["loss"]) for w in wins) \
+            or not wins[-1]["loss"] < wins[0]["loss"]:
+        raise AssertionError(f"data path: loss did not fall: {wins}")
+    if not n_end > n0:
+        raise AssertionError(f"data path: N {n0} -> {n_end} did not grow")
+    if not p_end > p1 + PSNR_GAIN_DB:
+        raise AssertionError(f"data path: held-out PSNR {p1:.2f} -> "
+                             f"{p_end:.2f} dB (gate +{PSNR_GAIN_DB})")
+    for f in (f"point_cloud/iteration_{DATA_ITERS}/point_cloud.ply",
+              f"chkpnt{DATA_ITERS}.npz", "cfg_args.json", "cameras.json",
+              "input.ply"):
+        if not (model / f).is_file():
+            raise AssertionError(f"data path: the train CLI wrote no {f}")
+    print(f"data path train: scene loaded in {seen['load_s']:.1f} s "
+          f"({len(tr) + len(te)} views at 1600x900); {DATA_ITERS} "
+          f"iterations in {train_s:.1f} s; N {n0} -> {n_end}; held-out "
+          f"PSNR {p1:.2f} (iteration 1) -> {p_end:.2f} dB; launches "
+          + json.dumps(train_counts), flush=True)
+
+    # --- 3. render and mesh: counts from zero, the render CLI ---------------
+    zero_counts()
+    timers = [CallTimer(extract_mod, n) for n in (
+        "render", "integrate", "marching_tets", "encode_png")]
+    t0 = time.perf_counter()
+    with timers[0], timers[1], timers[2], timers[3], \
+            LastCall(api, "rasterize_fwd") as k1:
+        rres = render_cli.main(["-m", str(model)])
+    bounded_s = time.perf_counter() - t0
+    render_counts = read_counts()
+    err = hold_fwd(k1.args, 1, "data path render K1")
+    report["fwd_err"] = max(report["fwd_err"], err)
+    del k1
+    print(f"data path K1 at the render CLI's shapes: max abs err {err:.3g}",
+          flush=True)
+    bounded = {t.name: t.stats() for t in timers}
+    # integrate's byte bound: the volume's five float32 channels read and
+    # written once, the view's depth and colour read once
+    vol, depth = timers[1].last_args[:2]
+    nbytes = vol.tsdf.numel() * 5 * 4 * 2 + depth.numel() * 4 * 4
+    bounded["integrate"].update(
+        grid=list(vol.tsdf.shape), bytes=nbytes,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    del vol, depth
+    timers[1].last_args = None
+    n_views = 2 * len(tr) + len(te)
+    if render_counts["rasterize_fwd"] != n_views \
+            or bounded["render"]["calls"] != n_views \
+            or render_counts["rasterize_bwd"] or render_counts["gather_rows"]:
+        raise AssertionError(f"data path render launches {render_counts} "
+                             f"for {n_views} views")
+    tree = cKDTree(surf[0])
+
+    def mesh_stats(verts, faces):
+        dist = tree.query(verts)[0]
+        inner = np.linalg.norm(verts, axis=1) < INNER_RADIUS
+        return {"verts": len(verts), "faces": len(faces),
+                "finite": bool(np.isfinite(verts).all()),
+                "median_dist_to_surfels": float(np.median(dist)),
+                "median_dist_inner": float(np.median(dist[inner])),
+                "inner_share": float(inner.mean())}
+
+    mesh = {"bounded": {**mesh_stats(*read_mesh_ply(rres["mesh"])[:2]),
+                        "post_faces": rres["post_faces"],
+                        "cli_s": bounded_s, **bounded}}
+    print("data path mesh bounded " + json.dumps(mesh["bounded"]),
+          flush=True)
+    with CallTimer(extract_mod, "marching_tets") as march_u:
+        t0 = time.perf_counter()
+        ures = render_cli.main(["-m", str(model), "--unbounded",
+                                "--mesh_res", str(UNBOUNDED_RES),
+                                "--skip_train", "--skip_test"])
+        unbounded_s = time.perf_counter() - t0
+    mesh["unbounded"] = {**mesh_stats(*read_mesh_ply(ures["mesh"])[:2]),
+                         "resolution": UNBOUNDED_RES,
+                         "post_faces": ures["post_faces"],
+                         "cli_s": unbounded_s,
+                         "marching_tets": march_u.stats()}
+    print("data path mesh unbounded " + json.dumps(mesh["unbounded"]),
+          flush=True)
+    # the pipeline's floor: the same bounded meshing of the true surfels
+    # (their colours as SH degree 0), rendered from the train views
+    truth = ss.SurfelRenderer(surf).state
+    truth.params.features_dc = rgb_to_sh(
+        torch.as_tensor(surf[4], device="cuda"))[:, None, :]
+    ex = GaussianExtractor(truth, max_sh_degree=0)
+    ex.reconstruction(tr)
+    _, radius = ex.estimate_bounding_sphere()
+    v_t, f_t, _ = ex.extract_mesh_bounded(
+        voxel_size=2 * radius / 1024, sdf_trunc=5 * 2 * radius / 1024,
+        depth_trunc=2 * radius)
+    mesh["bounded_truth"] = mesh_stats(v_t, f_t)
+    del ex, truth, v_t, f_t
+    print("data path mesh bounded_truth " + json.dumps(mesh["bounded_truth"]),
+          flush=True)
+    for kind, m in mesh.items():
+        if m["faces"] < 10_000 or not m["finite"]:
+            raise AssertionError(f"data path: {kind} mesh {m}")
+    b = mesh["bounded"]
+    if not b["median_dist_to_surfels"] < MESH_MEDIAN \
+            or not b["median_dist_inner"] < MESH_MEDIAN_INNER:
+        raise AssertionError(
+            f"data path: bounded mesh median distance to the surfels "
+            f"{b['median_dist_to_surfels']:.4g} (gate {MESH_MEDIAN}), within "
+            f"radius {INNER_RADIUS} {b['median_dist_inner']:.4g} (gate "
+            f"{MESH_MEDIAN_INNER})")
+    t = mesh["bounded_truth"]
+    if not max(t["median_dist_to_surfels"], t["median_dist_inner"]) \
+            < MESH_MEDIAN_TRUTH:
+        raise AssertionError(f"data path: the true surfels' bounded mesh "
+                             f"{mesh['bounded_truth']}")
+
+    # --- 4. metrics ---------------------------------------------------------
+    t0 = time.perf_counter()
+    metrics_cli.main(["-m", str(model)])
+    metrics_s = time.perf_counter() - t0
+    results = _json.loads((model / "results.json").read_text())
+    m = results[f"ours_{DATA_ITERS}"]
+    if abs(m["PSNR"] - p_end) > METRICS_PSNR_DB or not 0 < m["SSIM"] <= 1 \
+            or m["LPIPS"] is not None:
+        raise AssertionError(f"data path metrics {m} against the train "
+                             f"report {p_end:.3f} dB")
+    print(f"data path metrics ({metrics_s:.1f} s): " + json.dumps(m),
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    report.update(train_counts=train_counts, render_counts=render_counts)
+    print("data path " + json.dumps({
+        "write_s": write_s, "codec": codec, "scene_load_s": seen["load_s"],
+        "train_s": train_s, "n": [n0, n_end], "psnr": [p1, p_end],
+        "windows_ms_per_it": [w["ms_per_it"] for w in wins],
+        "metrics": m, "metrics_s": metrics_s}), flush=True)
+
+
 def main() -> int:
     if not (ROOT / "gs2d_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repo (no "
@@ -1597,14 +2055,28 @@ def main() -> int:
     gather_phase(gat, *fwd.pop("_gather_inputs"))
     loop = {}
     full_loop(loop, state)
+    del state
+    dpath = {}
+    data_path(dpath)
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], dpath["fwd_err"])
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], dpath["bwd_err"][0])
+    bwd["max_norm_err"] = max(bwd["max_norm_err"], dpath["bwd_err"][1])
     # K1 runs on every path: once per view and once per step
     fwd["launches_by_path"]["train_step"] = bwd.pop("fwd_launches_train")
     fwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_fwd"]
+    fwd["launches_by_path"]["data_path_train"] = \
+        dpath["train_counts"]["rasterize_fwd"]
+    fwd["launches_by_path"]["data_path_render"] = \
+        dpath["render_counts"]["rasterize_fwd"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     bwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_bwd"]
+    bwd["launches_by_path"]["data_path_train"] = \
+        dpath["train_counts"]["rasterize_bwd"]
     bwd["launches"] = sum(bwd["launches_by_path"].values())
-    gat["launches_by_path"] = {"loop": loop["launches"]["gather_rows"]}
-    gat["launches"] = loop["launches"]["gather_rows"]
+    gat["launches_by_path"] = {
+        "loop": loop["launches"]["gather_rows"],
+        "data_path_train": dpath["train_counts"]["gather_rows"]}
+    gat["launches"] = sum(gat["launches_by_path"].values())
     gat["densify"] = [{k: d[k] for k in ("iteration", "n_before", "n_after",
                                          "ms", "gather_ms",
                                          "gather_launches")}

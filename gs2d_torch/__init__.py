@@ -17,9 +17,13 @@ statistics (``models/densify.py``) — and the training loop
 row selection through the row-gather kernel ``csrc/gather_rows.cu``,
 wrapped by ``ops/gather.py``), the opacity reset, model init
 (``models/gaussians.py::init_from_pcd``, ``ops/knn.py``) and npz
-checkpoints in the JAX package's schema (``models/io.py``). Entry points
-take a ``device`` argument that defaults to ``"cuda"``; on a CPU tensor
-each kernel wrapper runs its plain PyTorch version instead.
+checkpoints in the JAX package's schema (``models/io.py``) — and the data
+path: COLMAP and Blender scenes on disk (``scene/``, with the port's own
+PNG codec in ``scene/images.py``), TSDF meshing (``render/extract.py``,
+``ops/tsdf.py``, ``ops/marching.py``) and the train, render and metrics
+CLIs (``cli/``). Entry points take a ``device`` argument that defaults to
+``"cuda"``; on a CPU tensor each kernel wrapper runs its plain PyTorch
+version instead.
 """
 
 import torch as _torch

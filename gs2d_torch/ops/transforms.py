@@ -58,6 +58,10 @@ def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2 * math.tan(fov / 2))
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def ndc_to_pix_matrix(width: int, height: int) -> np.ndarray:
     """4x4 (row-vector form) mapping NDC homogeneous coords to pixel coords.
 

@@ -45,6 +45,9 @@ class CameraData:
     alpha_mask: Optional[torch.Tensor] = None   # (1, H, W) or None
     image_name: str = ""
     uid: int = 0
+    # the raw COLMAP-style R (cam→world) and T (world→cam) it was built from
+    R: Optional[np.ndarray] = None
+    T: Optional[np.ndarray] = None
 
 
 def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,

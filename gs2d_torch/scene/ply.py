@@ -6,8 +6,9 @@ JAX package).
 Covers Gaussian checkpoints with the exact 3DGS-ecosystem attribute order
 x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,scale_*,rot_*
 (reference ``scene/gaussian_model.py:176-207``), so models interchange with
-the reference tooling and with the JAX package. Mesh and point-cloud PLYs
-come with the slices that port meshing and scene loading.
+the reference tooling and with the JAX package; triangle meshes
+(``write_mesh_ply``/``read_mesh_ply``) and seed point clouds
+(x,y,z[,nx,ny,nz][,red,green,blue]).
 """
 
 from __future__ import annotations
@@ -86,3 +87,107 @@ def write_ply(path: str, columns: Dict[str, np.ndarray],
         f.write(b"end_header\n")
         f.write(rec.tobytes())
 
+
+def write_mesh_ply(path: str, verts: np.ndarray, faces: np.ndarray,
+                   colors: np.ndarray | None = None) -> None:
+    """Triangle mesh with optional per-vertex uchar colors."""
+    n, m = len(verts), len(faces)
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if colors is not None:
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    rec = np.empty(n, np.dtype(fields))
+    rec["x"], rec["y"], rec["z"] = verts[:, 0], verts[:, 1], verts[:, 2]
+    if colors is not None:
+        c8 = np.clip(colors * 255.0 + 0.5, 0, 255).astype(np.uint8) \
+            if colors.dtype != np.uint8 else colors
+        rec["red"], rec["green"], rec["blue"] = c8[:, 0], c8[:, 1], c8[:, 2]
+    frec = np.empty(m, np.dtype([("n", "u1"), ("v", "<i4", (3,))]))
+    frec["n"] = 3
+    frec["v"] = faces.astype(np.int32)
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {n}\n".encode())
+        f.write(b"property float x\nproperty float y\nproperty float z\n")
+        if colors is not None:
+            f.write(b"property uchar red\nproperty uchar green\n"
+                    b"property uchar blue\n")
+        f.write(f"element face {m}\n".encode())
+        f.write(b"property list uchar int vertex_indices\n")
+        f.write(b"end_header\n")
+        f.write(rec.tobytes())
+        f.write(frec.tobytes())
+
+
+def read_mesh_ply(path: str):
+    """Reads a triangle mesh written by write_mesh_ply (or compatible
+    binary_little_endian PLY with uchar-count int-index face lists)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode("ascii").splitlines()
+    elems = []          # (name, count, props)
+    cur = None
+    for line in header:
+        t = line.split()
+        if not t:
+            continue
+        if t[0] == "element":
+            cur = (t[1], int(t[2]), [])
+            elems.append(cur)
+        elif t[0] == "property" and cur is not None:
+            cur[2].append(t)
+    off = end
+    verts = faces = colors = None
+    for name, count, props in elems:
+        if name == "vertex":
+            fields = [(p[2], _PLY_DTYPES[p[1]]) for p in props]
+            dt = np.dtype(fields)
+            arr = np.frombuffer(data, dt, count, off)
+            off += dt.itemsize * count
+            verts = np.stack([arr["x"], arr["y"], arr["z"]],
+                             -1).astype(np.float32)
+            if "red" in arr.dtype.names:
+                colors = np.stack([arr["red"], arr["green"], arr["blue"]],
+                                  -1).astype(np.float32) / 255.0
+        elif name == "face":
+            dt = np.dtype([("n", "u1"), ("v", "<i4", (3,))])
+            arr = np.frombuffer(data, dt, count, off)
+            off += dt.itemsize * count
+            faces = arr["v"].astype(np.int64)
+    return verts, faces, colors
+
+
+def read_point_cloud(path: str):
+    """(points (N,3) f32, colors (N,3) f32 in [0,1], normals (N,3) f32)."""
+    cols = read_ply(path)
+    pts = np.stack([cols["x"], cols["y"], cols["z"]], -1).astype(np.float32)
+    if "red" in cols:
+        int_typed = np.issubdtype(cols["red"].dtype, np.integer)
+        rgb = np.stack([cols["red"], cols["green"], cols["blue"]],
+                       -1).astype(np.float32)
+        # scale by STORED dtype, not a value heuristic (an all-dark
+        # uint8 cloud would otherwise skip the /255 and load 1/255 as
+        # full intensity; empty clouds made .max() raise)
+        if int_typed:
+            rgb = rgb / 255.0
+    else:
+        rgb = np.full_like(pts, 0.5)
+    if "nx" in cols:
+        nrm = np.stack([cols["nx"], cols["ny"], cols["nz"]],
+                       -1).astype(np.float32)
+    else:
+        nrm = np.zeros_like(pts)
+    return pts, rgb, nrm
+
+
+def write_point_cloud(path: str, points: np.ndarray, colors: np.ndarray,
+                      normals: np.ndarray | None = None) -> None:
+    if normals is None:
+        normals = np.zeros_like(points)
+    c8 = np.clip(colors * 255.0 + 0.5, 0, 255).astype(np.uint8) \
+        if colors.dtype != np.uint8 else colors
+    write_ply(path, {
+        "x": points[:, 0], "y": points[:, 1], "z": points[:, 2],
+        "nx": normals[:, 0], "ny": normals[:, 1], "nz": normals[:, 2],
+        "red": c8[:, 0], "green": c8[:, 1], "blue": c8[:, 2],
+    }, dtypes={"red": "u1", "green": "u1", "blue": "u1"})

@@ -9,7 +9,7 @@ background), PLY saves, checkpoints and resume, EMA progress logging.
 
 Tensors resize under densification, so the JAX loop's capacity growth
 and pairs-capacity escalation and re-tightening have no counterpart; the
-mesh and multi-host paths are not ported yet (ROADMAP queue 1 item 6).
+multi-host path is not ported yet (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ..config import (ModelParams, OptimizationParams, PipelineParams,
                       RuntimeParams)
 from ..models.densify import densify_and_prune, reset_opacity
 from ..models.io import load_checkpoint, save_checkpoint
+from ..scene.scene import Scene
 from ..train.optim import init_adam
 from ..train.step import TrainState, make_train_step
 
@@ -42,23 +43,21 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
           device="cuda"):
     """Train on ``device`` (default ``"cuda"``) → (TrainState, scene).
 
-    One deviation from the JAX ``train``: the scene is passed in, as an
-    object with ``gaussians`` (a GaussianState on ``device``),
-    ``cameras_extent``, ``model_path``, ``get_train_cameras()`` (a list of
-    ``CameraData``) and ``save(iteration, state)``; the JAX loop builds it
-    from ``model.source_path``. The dataset loaders are not ported yet
-    (ROADMAP queue 1 item 3), so ``scene=None`` raises.
+    With ``scene=None`` the loop builds ``Scene(model, seed=rt.seed,
+    device=device)`` from the dataset at ``model.source_path``, as the JAX
+    loop does. A caller may pass a scene instead: any object with
+    ``gaussians`` (a GaussianState on ``device``), ``cameras_extent``,
+    ``model_path``, ``get_train_cameras()`` (a list of ``CameraData``) and
+    ``save(iteration, state)``.
 
     ``log_fn(iteration, record)`` gets the EMA losses every 10 iterations;
     ``report_fn(iteration, ts, scene)`` runs at ``test_iterations``;
     ``profile_dir`` receives a ``torch.profiler`` trace of iterations
     50–60; ``viewer_fn(iteration, ts, ema)`` runs after every iteration.
     """
-    if scene is None:
-        raise NotImplementedError(
-            "train() needs a scene object: the dataset loaders of "
-            "gs2d_tpu/scene are not ported yet (ROADMAP queue 1 item 3)")
     device = torch.device(device)
+    if scene is None:
+        scene = Scene(model, seed=rt.seed, device=device)
     if start_checkpoint:
         gaussians, opt_state, first_iter, _ = load_checkpoint(
             start_checkpoint, device=device)

@@ -8,6 +8,7 @@ CPU, where every kernel wrapper takes its plain PyTorch version.
 import math
 
 import numpy as np
+import pytest
 import torch
 
 from gs2d_torch.scene.cameras import make_camera
@@ -30,3 +31,15 @@ def tile_lists(gid, tile_start, tile_count):
     """Per-tile slot lists as Python lists of Gaussian ids."""
     gid, start, count = (np.asarray(x) for x in (gid, tile_start, tile_count))
     return [gid[s:s + c].tolist() for s, c in zip(start, count)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for torch while a module that imports this
+    fixture runs: the test run puts several workers on the machine's
+    cores, and the OpenMP threads of several torch workers, each sized to
+    every core, thrash one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

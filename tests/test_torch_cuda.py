@@ -372,3 +372,58 @@ def test_densify_cuda_matches_cpu(cuda, max_screen_size):
                                getattr(getattr(ref_o, mom), f)), (mom, f)
     for f in ("max_radii2d", "grad_accum", "denom"):
         assert not getattr(got_s, f).any()
+
+
+def _sphere_depth(eye, W=96, H=96, fov=math.radians(40), r=0.5):
+    """A camera at ``eye`` looking at the origin and the analytic depth
+    map of a sphere of radius r there (tests/test_mesh.py's views)."""
+    eye = np.asarray(eye, np.float64)
+    fwd = -eye / np.linalg.norm(eye)
+    up0 = np.array([0.0, 0, 1]) if abs(fwd[2]) < 0.9 else np.array([0.0, 1,
+                                                                      0])
+    right = np.cross(fwd, up0)
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd], 1)
+    f = (W / 2) / math.tan(fov / 2)
+    gx, gy = np.meshgrid((np.arange(W) - (W - 1) / 2) / f,
+                         (np.arange(H) - (H - 1) / 2) / f, indexing="xy")
+    d = np.linalg.norm(eye)
+    dirz = 1.0 / np.sqrt(1 + gx ** 2 + gy ** 2)
+    disc = (d * dirz) ** 2 - (d * d - r * r)
+    depth = np.where(disc > 0, (d * dirz - np.sqrt(np.maximum(disc, 0)))
+                     * dirz, 0.0).astype(np.float32)
+    return R, -R.T @ eye, fov, f, depth
+
+
+def test_tsdf_and_marching_match_the_cpu(cuda):
+    """TSDF fusion and marching tets on the card against the same calls
+    on CPU tensors: tsdf and colour within 1e-5, weights equal, and the
+    same mesh: the nearest-vertex map is one to one within 1e-5 and
+    carries the CPU faces onto the card's (a vertex whose welding key
+    moves with the rounding may change places)."""
+    from scipy.spatial import cKDTree
+    from gs2d_torch.ops.marching import marching_tets
+    from gs2d_torch.ops.tsdf import integrate, make_volume
+    vols = {d: make_volume(np.zeros(3), 0.9, 0.02, device=d)
+            for d in ("cpu", cuda)}
+    color = torch.rand((3, 96, 96), generator=torch.Generator().manual_seed(0))
+    for eye in ([2.5, 0, 0], [-2.5, 0, 0], [0, 2.5, 0], [0, -2.5, 0],
+                [0, 0, 2.5], [0, 0, -2.5]):
+        R, T, fov, f, depth = _sphere_depth(eye)
+        for d, vol in vols.items():
+            cam = make_camera(R, T, fov, fov, 96, 96, device=d)
+            integrate(vol, torch.as_tensor(depth, device=d), color.to(d),
+                      cam.world_view, f, f, 96, 96, 0.1, 3.0)
+    cpu, card = vols["cpu"], vols[cuda]
+    assert torch.equal(card.weight.cpu(), cpu.weight)
+    assert torch.allclose(card.tsdf.cpu(), cpu.tsdf, rtol=0, atol=1e-5)
+    assert torch.allclose(card.color.cpu(), cpu.color, rtol=0, atol=1e-5)
+    meshes = [marching_tets(v.tsdf, v.origin, v.voxel_size,
+                            mask=v.weight > 0) for v in (cpu, card)]
+    (v0, f0), (v1, f1) = [(v.cpu().numpy(), f.cpu().numpy())
+                          for v, f in meshes]
+    assert f0.shape[0] > 1000 and v1.shape == v0.shape
+    dist, to_card = cKDTree(v1).query(v0)
+    assert dist.max() < 1e-5 and len(np.unique(to_card)) == len(v0)
+    assert {tuple(f) for f in np.sort(to_card[f0], 1).tolist()} == \
+        {tuple(f) for f in np.sort(f1, 1).tolist()}

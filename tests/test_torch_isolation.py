@@ -44,6 +44,14 @@ def test_renderer_imports_with_jax_blocked():
                "import gs2d_torch.train.step, gs2d_torch.train.loop\n"
                "import gs2d_torch.ops.gather, gs2d_torch.ops.knn\n"
                "import gs2d_torch.models.densify, gs2d_torch.config\n"
+               "import gs2d_torch.scene.colmap, gs2d_torch.scene.dataset\n"
+               "import gs2d_torch.scene.images, gs2d_torch.scene.scene\n"
+               "import gs2d_torch.ops.tsdf, gs2d_torch.ops.marching\n"
+               "import gs2d_torch.render.extract\n"
+               "import gs2d_torch.utils.render_paths\n"
+               "import gs2d_torch.utils.synthetic_scene\n"
+               "import gs2d_torch.cli.train, gs2d_torch.cli.render\n"
+               "import gs2d_torch.cli.metrics\n"
                "print(sorted(m for m in sys.modules "
                "if m.startswith(('jax', 'gs2d_tpu'))))\n")
     assert out.strip() == "['gs2d_tpu', 'jax']"   # only the blocked stubs
@@ -78,3 +86,30 @@ def test_render_without_a_card_raises():
         CUDA_VISIBLE_DEVICES="")
     assert out.split("\n")[:3] == ["camera raised", "render raised",
                                    "torch.Size([3, 32, 64])"]
+
+
+def test_cli_without_a_card_raises(tmp_path):
+    """With no card, the train and render CLIs' default device is still
+    CUDA: without --device cpu they raise before loading anything, and
+    neither trains nor renders on the CPU."""
+    out = _run(
+        "import sys, torch\n"
+        "import gs2d_torch.train.loop as loop\n"
+        "import gs2d_torch.scene.scene as scene\n"
+        "from gs2d_torch.cli import render, train\n"
+        "assert not torch.cuda.is_available()\n"
+        "def never(*a, **k):\n"
+        "    raise AssertionError('ran on the CPU')\n"
+        "loop.train = never\n"
+        "scene.Scene = never\n"
+        f"model = {str(tmp_path / 'model')!r}\n"
+        "for cli, argv in ((train, ['-s', 'data', '-m', model]),\n"
+        "                  (render, ['-m', model])):\n"
+        "    try:\n"
+        "        cli.main(argv)\n"
+        "        print('ran')\n"
+        "    except RuntimeError as e:\n"
+        "        print('raised', 'CUDA' in str(e))\n",
+        CUDA_VISIBLE_DEVICES="")
+    assert out.split("\n")[:2] == ["raised True", "raised True"]
+    assert not (tmp_path / "model").exists()

@@ -216,11 +216,13 @@ def test_loop_matches_jax_schedule_and_trains(monkeypatch):
     assert p_final > p_init + 2.0, f"{p_init:.2f} -> {p_final:.2f} dB"
 
 
-def test_loop_without_a_scene_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        t_loop.train(t_cfg.ModelParams(), t_cfg.OptimizationParams(),
-                     t_cfg.PipelineParams(), t_cfg.RuntimeParams(),
-                     device="cpu")
+def test_loop_without_a_scene_raises(tmp_path):
+    """With no scene passed, train() loads the dataset at
+    model.source_path; where there is none it raises before any step."""
+    with pytest.raises(ValueError, match="could not recognize scene type"):
+        t_loop.train(t_cfg.ModelParams(source_path=str(tmp_path)),
+                     t_cfg.OptimizationParams(), t_cfg.PipelineParams(),
+                     t_cfg.RuntimeParams(), device="cpu")
 
 
 def test_loop_saves_profiles_checkpoints_and_resumes(tmp_path):
