@@ -5,8 +5,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
 (``gs2d_torch.render.renderer.render``), the training step
 (``gs2d_torch.train.step.make_train_step``), the training loop
-(``gs2d_torch.train.loop.train``) and the data path (the train, render
-and metrics CLIs on a dataset on disk) on the card:
+(``gs2d_torch.train.loop.train``), the benchmark entry point
+(``python -m gs2d_torch.cli.bench``) and the data path (the train, render
+and metrics CLIs on a dataset on disk) on the card, all with the binning's
+interval cull on, the default:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel, compiled together, with the build seconds and
@@ -32,7 +34,7 @@ and metrics CLIs on a dataset on disk) on the card:
    version), and what the kernels' row test and per-pixel skip leave of
    them, counted with their plain twins, which must never drop a pair the
    exact test keeps;
-6. full width, training: one warm-up and TRAIN_STEPS timed steps of
+6. full width, training: WARMUP_STEPS and TRAIN_STEPS timed steps of
    ``train_step`` at the bench.py train-step point (view 0, lambda_dist
    10, depth_ratio 1, iteration 8000, ground truth from default_rng(1)).
    K1 and K2 must run once per step, every gradient, parameter and
@@ -41,17 +43,26 @@ and metrics CLIs on a dataset on disk) on the card:
    peak memory; one profiled step; two backward passes bit-identical; K2
    against its plain version on sampled tiles and all of view 0, and K2's
    pair counts there;
-7. small loop: the card twin of tests/test_loop_e2e.py,
+7. the interval cull, off, beside phases 5 and 6, which ran with it on
+   (the default): per view slots, binning, K1 (mean of 20) and render ms
+   and the render's peak GiB above what was allocated before it; the
+   culled image against the un-culled one (within TOL, bit-equal
+   expected), the median and last contributors mapped to Gaussian ids
+   equal on MED_AGREE of the pixels, the culled slots no more than the
+   un-culled and, at view 0, than CULL_PAIRS_MAX; at the step's view 0,
+   TRAIN_STEPS un-culled steps (ms, the reduction's ms, peak GiB), one
+   traced step's device-busy ms, and K2 (mean of 20), beside phase 6's;
+8. small loop: the card twin of tests/test_loop_e2e.py,
    300 iterations of ``train()`` on three 64x32 views from 12 points;
    densification must grow N past 12, every logged loss be finite and
    view 0's PSNR rise by more than 2 dB;
-8. row gather (G1–G5's function): ``gather_rows`` bit-identical to
+9. row gather (G1–G5's function): ``gather_rows`` bit-identical to
    ``table[idx]`` for F in GATHER_F, M in {0, 1, 1000, GATHER_M}, int32
    and int64 indices, out-of-range indices raising; the kernel alone and
    its wrapper timed (mean of 20, CUDA events) beside
    ``torch.index_select`` and the plain version at the probes' shape and
    at view 0's expansion gather ``packed[gid]``;
-9. full-width loop: ``train()`` resumed from a checkpoint of the
+10. full-width loop: ``train()`` resumed from a checkpoint of the
    perturbed 1M-splat scene at iteration 2900 and run to 3100 against
    renders of the true scene (densify at 3000 and 3100, the opacity
    reset at 3000). Gates: K1 and K2 once per step; after each densify
@@ -61,7 +72,14 @@ and metrics CLIs on a dataset on disk) on the card:
    moments; the checkpoint written at 3100 resumes 5 steps bit for bit.
    Prints per-window step times and pairs, densify and reset times, the
    gather's share, checkpoint write and read times and peak memory;
-10. the data path, through the CLIs' ``main(argv)``
+11. the benchmark: ``gs2d_torch.cli.bench.main([])``, its defaults (1M
+   splats, 1920x1080), with the counts from zero; its JSON line is
+   printed and must carry a value and the train-step rate, no error, and
+   K1 and K2 counts of one launch per step of its loops. The latest K1
+   and K2 calls of each of its three measurements (the headline, the
+   train step, the uniform 100k scene) are launched again on their
+   arguments and held against the plain versions on sampled tiles;
+12. the data path, through the CLIs' ``main(argv)``
    (``gs2d_torch.cli.train``, ``.render``, ``.metrics``): a COLMAP
    dataset of 64 1920x1080 views of the 300k-surfel procedural scene
    (binary sparse/0, RGB PNGs by the port's encoder, a 30k-point seed
@@ -81,12 +99,12 @@ and metrics CLIs on a dataset on disk) on the card:
    around the render CLI; the latest K1 and K2 calls of the train CLI and
    the latest K1 call of the render CLI are launched again on their
    arguments and held against the plain versions on sampled tiles;
-11. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+13. one ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths, error, time, plain-version time, library-call time where there
    is one, ptxas's report and the bound computed from this run's inputs
    (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32; K1's and K2's operations
    on their composited pairs, the pair counts under ``bound_detail``);
-12. the card line, then ``{"ok": true, "device": {...}}`` as the last
+14. the card line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Any failure exits non-zero before the last line is printed; so does a
@@ -97,6 +115,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -125,8 +144,14 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 5e-4  # tests/test_rasterize_bwd.py:50-57
 DFLD = {"A": slice(0, 3), "B": slice(3, 6), "C": slice(6, 9),
         "c2": slice(9, 12), "opacity": slice(12, 13), "rgb": slice(13, 16),
         "normal": slice(16, 19), "noise": slice(19, 22)}  # common.py
+# the interval cull at view 0: the JAX package's strips leave about 11.5M
+# pairs there (gs2d_tpu/ops/rasterize/binning.py:450-452); one interval
+# per tile row can only be tighter, up to the port's rounding bounds
+CULL_PAIRS_MAX = int(11_500_000 * 1.05)
+BENCH_DEADLINE_S = 600             # gs2d_torch.cli.bench's alarm, here
 TRAIN_ITER = 8000                  # bench.py: every loss term live
 TRAIN_STEPS = 5
+WARMUP_STEPS = 2                   # as gs2d_torch.cli.bench
 KERNEL_REPS = 20
 GATHER_N = 1 << 20                 # scripts/probe_gather_kernel.py:59-61
 GATHER_M = 5_600_256
@@ -202,17 +227,10 @@ def random_cloud(n, seed, spread=1.0, scale_lo=0.02, scale_hi=0.25,
 def lookat(width, height, theta_deg=0.0, dist=4.0, fov_deg=60.0,
            device="cuda"):
     """Camera at distance ``dist`` from the origin, looking at it, orbited
-    by ``theta_deg`` about the world y axis."""
-    import numpy as np
-
-    from gs2d_torch.scene.cameras import make_camera
-    th = math.radians(theta_deg)
-    R = np.array([[math.cos(th), 0.0, math.sin(th)], [0.0, 1.0, 0.0],
-                  [-math.sin(th), 0.0, math.cos(th)]])      # cam → world
-    fovx = math.radians(fov_deg)
-    fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
-    return make_camera(R, np.array([0.0, 0.0, dist]), fovx, fovy, width,
-                       height, device=device)
+    by ``theta_deg`` about the world y axis (the benchmark's camera
+    builder)."""
+    from gs2d_torch.cli.bench import bench_camera as build
+    return build(width, height, device, theta_deg, dist, fov_deg)
 
 
 def small_scene_list():
@@ -390,8 +408,8 @@ def small_scenes(report):
     import numpy as np
     import torch
 
-    from gs2d_torch.ops.rasterize.api import pack_entries, rasterize, untile
-    from gs2d_torch.ops.rasterize.binning import bin_gaussians
+    from gs2d_torch.ops.rasterize.api import (bin_preprocessed, pack_entries,
+                                              rasterize, untile)
     from gs2d_torch.ops.rasterize.kernel_fwd import (rasterize_fwd,
                                                      rasterize_fwd_reference)
     from gs2d_torch.ops.rasterize.oracle import rasterize_oracle
@@ -404,8 +422,7 @@ def small_scenes(report):
         cam = lookat(w, h)
         bg = torch.zeros(3, device="cuda")
         pre = prepare(cam, state, noise=noise)
-        bins = bin_gaussians(pre.center2d, pre.extent, pre.depth,
-                             pre.visible, w, h)
+        bins = bin_preprocessed(pre, w, h)
         args = (pack_entries(pre), bins.gid, bins.tile_start,
                 bins.tile_count, w, h)
         got = rasterize_fwd(*args)
@@ -488,25 +505,10 @@ def profile_call(fn, top=6):
 def bench_state():
     """The 1M-splat trained-like scene at SH degree 3 (bench.py), with
     seeded SH rest coefficients, on the card."""
-    import numpy as np
-    import torch
-
-    from gs2d_torch.models.gaussians import GaussianParams, GaussianState
-    from gs2d_torch.ops.sh import rgb_to_sh
-    from gs2d_torch.utils.bench_scenes import make_trained_like_scene
+    from gs2d_torch.utils.bench_scenes import bench_state as build
 
     t0 = time.time()
-    means, scales, quats, opac, rgb = make_trained_like_scene(N_SPLATS)
-    rng = np.random.default_rng(0)
-    rest = (rng.normal(size=(N_SPLATS, 15, 3)) * 0.1).astype(np.float32)
-    opac = np.clip(opac, 1e-4, 1 - 1e-4)
-    dev = lambda x: torch.as_tensor(np.ascontiguousarray(x),  # noqa: E731
-                                    dtype=torch.float32, device="cuda")
-    state = GaussianState(params=GaussianParams(
-        xyz=dev(means), features_dc=dev(rgb_to_sh(rgb)[:, None, :]),
-        features_rest=dev(rest), scaling=dev(np.log(scales)),
-        rotation=dev(quats), opacity=dev(np.log(opac / (1 - opac))[:, None])),
-        active_sh_degree=SH_DEGREE)
+    state = build(N_SPLATS, rest_seed=0, device="cuda")
     print(f"full width: scene of {N_SPLATS} splats built in "
           f"{time.time() - t0:.1f} s", flush=True)
     return state
@@ -523,8 +525,8 @@ def full_width(report, state):
     import torch
 
     from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
-    from gs2d_torch.ops.rasterize.api import pack_entries, untile
-    from gs2d_torch.ops.rasterize.binning import bin_gaussians
+    from gs2d_torch.ops.rasterize.api import (bin_preprocessed, pack_entries,
+                                              untile)
     from gs2d_torch.render.renderer import bridge, prepare, render
 
     bg = torch.zeros(3, device="cuda")
@@ -539,9 +541,12 @@ def full_width(report, state):
         outs = []
         for cam in cams:
             torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             total = cuda_ms(lambda: outs.append(render(cam, state, bg)))
             outs[-1]["total_ms"] = total
             outs[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            outs[-1]["peak_above_start_gib"] = (
+                torch.cuda.max_memory_allocated() - base) / 2**30
         launches = kernel_fwd.rasterize_fwd.launches
         if launches != len(cams) or kernel_bwd.rasterize_bwd.launches:
             raise AssertionError(f"rasterize_fwd launched {launches} times "
@@ -551,6 +556,7 @@ def full_width(report, state):
 
         # --- checks and per-stage times, view by view ---------------------
         err, n_eval, inputs0 = 0.0, 0, None
+        report["_views"] = []
         for v, (cam, res) in enumerate(zip(cams, outs)):
             for key, val in res.items():
                 if torch.is_tensor(val) and val.is_floating_point() \
@@ -568,15 +574,15 @@ def full_width(report, state):
 
             stage("preprocess", lambda: prepare(cam, state))
             pre = st["preprocess"]
-            stage("binning", lambda: bin_gaussians(
-                pre.center2d, pre.extent, pre.depth, pre.visible, WIDTH,
-                HEIGHT))
+            stage("binning", lambda: bin_preprocessed(pre, WIDTH, HEIGHT))
             bins = st["binning"]
             stage("pack", lambda: pack_entries(pre))
             args = (st["pack"], bins.gid, bins.tile_start, bins.tile_count,
                     WIDTH, HEIGHT)
             stage("rasterize_fwd", lambda: kernel_fwd.rasterize_fwd(*args))
             out_t, med, nc = st["rasterize_fwd"]
+            k1_ms = cuda_ms(lambda: kernel_fwd.rasterize_fwd(*args),
+                            reps=KERNEL_REPS)
             stage("bridge", lambda: bridge(
                 cam, pre, untile(out_t, WIDTH, HEIGHT),
                 {"num_pairs": bins.num_pairs}, bg))
@@ -598,15 +604,21 @@ def full_width(report, state):
                     "num_pairs": bins.num_pairs,
                     "evaluated_pairs": int(nc.sum()),
                     "alpha_cover": cover, "total_ms": res["total_ms"],
-                    "stage_ms": ms, "peak_gib": res["peak_gib"]}
+                    "stage_ms": ms, "k1_ms": k1_ms,
+                    "peak_gib": res["peak_gib"],
+                    "peak_above_start_gib": res["peak_above_start_gib"]}
             print("view " + json.dumps(line), flush=True)
+            # the cull phase's culled side: this view's lists and K1 output
+            report["_views"].append({
+                "args": args, "out": (out_t, med, nc),
+                "slots": bins.num_pairs, "binning_ms": ms["binning"],
+                "k1_ms": k1_ms, "render_ms": res["total_ms"],
+                "render_peak_above_start_gib": res["peak_above_start_gib"]})
         report["max_abs_err"] = max(report["max_abs_err"], err)
 
         # --- kernel and plain-version times at view 0's inputs -------------
-        kernel_fwd.rasterize_fwd(*inputs0)
-        report["ms"] = cuda_ms(lambda: kernel_fwd.rasterize_fwd(*inputs0),
-                               reps=20)
-        out_t, med, nc = kernel_fwd.rasterize_fwd(*inputs0)
+        report["ms"] = report["_views"][0]["k1_ms"]
+        out_t, med, nc = report["_views"][0]["out"]
         plain = {}
         report["plain_ms"] = cuda_ms(lambda: plain.__setitem__(
             "r", kernel_fwd.rasterize_fwd_reference(
@@ -692,15 +704,13 @@ def k2_inputs(cam, state, noise, cot_seed):
     import numpy as np
     import torch
 
-    from gs2d_torch.ops.rasterize.api import pack_entries
-    from gs2d_torch.ops.rasterize.binning import bin_gaussians
+    from gs2d_torch.ops.rasterize.api import bin_preprocessed, pack_entries
     from gs2d_torch.ops.rasterize.kernel_fwd import rasterize_fwd
     from gs2d_torch.render.renderer import prepare
 
     with torch.no_grad():
         pre = prepare(cam, state, noise=noise)
-        bins = bin_gaussians(pre.center2d, pre.extent, pre.depth,
-                             pre.visible, cam.width, cam.height)
+        bins = bin_preprocessed(pre, cam.width, cam.height)
         fargs = (pack_entries(pre), bins.gid, bins.tile_start,
                  bins.tile_count)
         out, med, nc = rasterize_fwd(*fargs, cam.width, cam.height)
@@ -923,13 +933,14 @@ def full_train(report, state):
     cfg = OptimizationParams(lambda_dist=10.0)
     step = make_train_step(cfg, max_sh_degree=SH_DEGREE, depth_ratio=1.0)
     ts = TrainState(gaussians=state, opt=init_adam(state.params))
-    ts, _ = step(ts, cam, gt, TRAIN_ITER, bg)                  # warm-up
+    for _ in range(WARMUP_STEPS):
+        ts, _ = step(ts, cam, gt, TRAIN_ITER, bg)
     torch.cuda.synchronize()
 
     # --- the main path: counts from zero, TRAIN_STEPS steps ---------------
     kernel_fwd.rasterize_fwd.launches = 0
     kernel_bwd.rasterize_bwd.launches = 0
-    step_ms = []
+    step_ms, red_ms, peak = [], [], 0.0
     with StageMarks() as marks:
         for i in range(TRAIN_STEPS):
             torch.cuda.reset_peak_memory_stats()
@@ -968,6 +979,8 @@ def full_train(report, state):
                     or int(vis.sum()) == 0:
                 raise AssertionError(f"step {i}: denom did not grow by one "
                                      f"on exactly the visible Gaussians")
+            red_ms.append(marks.stage_ms()["reduction"])
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
             line = {"step": i, "step_ms": step_ms[-1],
                     "stage_ms": marks.stage_ms(), "host_ms": host_ms,
                     "host_stage": marks.host_ms(),
@@ -985,10 +998,14 @@ def full_train(report, state):
     report["fwd_launches_train"] = kernel_fwd.rasterize_fwd.launches
     report["step_ms"] = sum(step_ms) / len(step_ms)
     report["card_steps_per_s"] = 1e3 / report["step_ms"]
+    report["reduction_ms"] = sum(red_ms) / len(red_ms)
+    report["step_peak_gib"] = peak
+    report["slots"] = metrics["num_pairs"]
 
     # --- one traced step: device busy share, top kernels ------------------
-    print("profile_train " + json.dumps(profile_call(
-        lambda: step(ts, cam, gt, TRAIN_ITER, bg), top=12)), flush=True)
+    prof = profile_call(lambda: step(ts, cam, gt, TRAIN_ITER, bg), top=12)
+    report["step_device_busy_ms"] = prof["device_busy_ms"]
+    print("profile_train " + json.dumps(prof), flush=True)
 
     # --- per-Gaussian gradients of two backward passes, bit for bit -------
     st = ts.gaussians
@@ -1056,6 +1073,219 @@ def full_train(report, state):
         **pairs, "max_n_contrib": int(nc.max())}
 
 
+def slot_gids(idx, gid, tile_start):
+    """Per-pixel tile-local slot indices (T, TILE_PX) → Gaussian ids
+    through ``gid[tile_start + idx]``; -1 where idx < 0."""
+    import torch
+    if gid.numel() == 0:
+        return torch.full_like(idx, -1, dtype=torch.int64)
+    at = (tile_start.long()[:, None] + idx.long()).clamp(0, gid.numel() - 1)
+    return torch.where(idx >= 0, gid.long()[at], -1)
+
+
+def cull_phase(fwd, bwd, state):
+    """Phase 7: the interval cull off, beside the culled readings that
+    phases 5 and 6 took on the main path (the cull is the default), in one
+    call. Per view (0°/20°/40°): slots, binning ms, K1 ms (mean of
+    KERNEL_REPS), render ms and the render's peak above the memory
+    allocated before it; the culled image against the un-culled one
+    (bit-equal expected, else within TOL), the median and last
+    contributor mapped back to Gaussian ids through gid[tile_start + idx]
+    (the raw slots shift when pairs drop). At the step's view 0:
+    WARMUP_STEPS and TRAIN_STEPS steps (mean ms, the reduction's ms, peak
+    GiB) and K2 (mean of KERNEL_REPS). K1 and K2 on the culled lists were
+    held against their plain versions in phases 5 and 6."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.config import OptimizationParams
+    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.ops.rasterize.api import bin_preprocessed, pack_entries
+    from gs2d_torch.render.renderer import prepare, render
+    from gs2d_torch.train.optim import init_adam
+    from gs2d_torch.train.step import TrainState, make_train_step
+
+    keys = ("slots", "binning_ms", "k1_ms", "render_ms",
+            "render_peak_above_start_gib")
+    bg = torch.zeros(3, device="cuda")
+    on_views = fwd.pop("_views")
+    views = []
+    with torch.no_grad():
+        for v, (th, on) in enumerate(zip(VIEW_DEGREES, on_views)):
+            cam = bench_camera(th)
+            render(cam, state, bg, cull=False)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            render_ms = cuda_ms(lambda: render(cam, state, bg, cull=False))
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            pre = prepare(cam, state)
+            st = {}
+            bin_ms = cuda_ms(lambda: st.__setitem__(
+                "b", bin_preprocessed(pre, WIDTH, HEIGHT, cull=False)))
+            b = st.pop("b")
+            args = (pack_entries(pre), b.gid, b.tile_start, b.tile_count,
+                    WIDTH, HEIGHT)
+            del pre
+            out = kernel_fwd.rasterize_fwd(*args)
+            k1_ms = cuda_ms(lambda: kernel_fwd.rasterize_fwd(*args),
+                            reps=KERNEL_REPS)
+            off = {"args": args, "out": out, "slots": b.num_pairs,
+                   "binning_ms": bin_ms, "k1_ms": k1_ms,
+                   "render_ms": render_ms,
+                   "render_peak_above_start_gib": peak}
+            diff = (on["out"][0] - off["out"][0]).abs().max().item()
+            bit_equal = torch.equal(on["out"][0], off["out"][0])
+            agree = {}
+            for name, k, shift in (("med", 1, 0), ("last_contrib", 2, 1)):
+                ids = [slot_gids(r["out"][k] - shift, r["args"][1],
+                                 r["args"][2]) for r in (off, on)]
+                agree[name] = (ids[0] == ids[1]).float().mean().item()
+            line = {"view": v, "theta_deg": th, "image_bit_equal": bit_equal,
+                    "image_max_diff": diff, "gid_agree": agree,
+                    **{f"{k}_{side}": r[k] for side, r in
+                       (("off", off), ("on", on)) for k in keys}}
+            print("cull " + json.dumps(line), flush=True)
+            if diff > TOL or min(agree.values()) < MED_AGREE:
+                raise AssertionError(f"view {v}: the cull changes the image "
+                                     f"(max diff {diff:.3g}) or the "
+                                     f"contributors ({agree})")
+            if on["slots"] > off["slots"] or (v == 0 and on["slots"]
+                                              > CULL_PAIRS_MAX):
+                raise AssertionError(f"view {v}: {on['slots']} culled "
+                                     f"slots ({off['slots']} un-culled, "
+                                     f"view 0 bound {CULL_PAIRS_MAX})")
+            views.append(line)
+            del args, out, off, b
+        del on_views, on
+
+    cam = bench_camera(0.0)
+    gt = torch.as_tensor(np.random.default_rng(1).random(
+        (3, HEIGHT, WIDTH), np.float32), device="cuda")
+    step = make_train_step(OptimizationParams(lambda_dist=10.0),
+                           max_sh_degree=SH_DEGREE, depth_ratio=1.0,
+                           cull=False)
+    ts = TrainState(gaussians=state, opt=init_adam(state.params))
+    for _ in range(WARMUP_STEPS):
+        ts, _ = step(ts, cam, gt, TRAIN_ITER, bg)
+    torch.cuda.synchronize()
+    ms, red, peak = [], [], 0.0
+    with StageMarks() as marks:
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts, metrics = step(ts, cam, gt, TRAIN_ITER, bg)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            red.append(marks.stage_ms()["reduction"])
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        bwd_args = marks.seen["rasterize_bwd"][0]
+    with torch.no_grad():
+        kernel_bwd.rasterize_bwd(*bwd_args)
+        k2_ms = cuda_ms(lambda: kernel_bwd.rasterize_bwd(*bwd_args),
+                        reps=KERNEL_REPS)
+    del bwd_args, marks
+    # the step is host-bound: its device time, from one traced step, is
+    # what the cull moves
+    busy = profile_call(lambda: step(ts, cam, gt, TRAIN_ITER, bg))
+    del ts
+    off = {"slots": metrics["num_pairs"], "step_ms": sum(ms) / len(ms),
+           "step_device_busy_ms": busy["device_busy_ms"],
+           "reduction_ms": sum(red) / len(red), "k2_ms": k2_ms,
+           "step_peak_gib": peak}
+    on = {"slots": bwd["slots"], "step_ms": bwd["step_ms"],
+          "step_device_busy_ms": bwd["step_device_busy_ms"],
+          "reduction_ms": bwd["reduction_ms"], "k2_ms": bwd["ms"],
+          "step_peak_gib": bwd["step_peak_gib"]}
+    print("cull step " + json.dumps(
+        {f"{k}_{side}": r[k] for side, r in (("off", off), ("on", on))
+         for k in off}), flush=True)
+    if on["slots"] > off["slots"]:
+        raise AssertionError(f"step: culled slots {on['slots']} > "
+                             f"{off['slots']}")
+    fwd["ms_cull_off"] = views[0]["k1_ms_off"]
+    bwd["ms_cull_off"] = off["k2_ms"]
+
+
+def bench_phase(report, fwd, bwd):
+    """Phase 11: ``gs2d_torch.cli.bench.main([])`` at its defaults (1M
+    splats, 1920x1080), in this process with the counts from zero; its
+    JSON line is printed. Fails unless it gives a value, the train-step
+    rate, no error, and K1 and K2 counts of one launch per step of its
+    three loops. The latest K1 and K2 arguments of each measurement (the
+    headline, the train step, the uniform scene) are kept and held
+    against the plain versions on sampled tiles."""
+    import contextlib
+    import io
+
+    from gs2d_torch.cli import bench
+    from gs2d_torch.ops.rasterize import api
+
+    held = []
+    real = {name: getattr(bench, name)
+            for name in ("measure", "measure_train_step")}
+
+    def keeping(name):
+        def run(*args, **kw):
+            out = real[name](*args, **kw)
+            held.append((name, k1.args, k2.args))
+            return out
+        return run
+
+    buf = io.StringIO()
+    env = os.environ.get("BENCH_DEADLINE")
+    os.environ["BENCH_DEADLINE"] = str(BENCH_DEADLINE_S)
+    t0 = time.time()
+    try:
+        with LastCall(api, "rasterize_fwd") as k1, \
+                LastCall(api, "rasterize_bwd") as k2, \
+                contextlib.redirect_stdout(buf):
+            for name in real:
+                setattr(bench, name, keeping(name))
+            zero_counts()
+            rc = bench.main([])
+    finally:
+        for name, fn in real.items():
+            setattr(bench, name, fn)
+        if env is None:
+            del os.environ["BENCH_DEADLINE"]
+        else:
+            os.environ["BENCH_DEADLINE"] = env
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"gs2d_torch.cli.bench returned {rc} and "
+                             f"printed {lines}")
+    rec = json.loads(lines[-1])
+    print(f"bench ({time.time() - t0:.1f} s) {lines[-1]}", flush=True)
+    steps = 2 * (bench.WARMUP + 8) + bench.WARMUP + bench.TRAIN_ITERS
+    launches = rec.get("kernel_launches", {})
+    if rec["value"] is None or "error" in rec \
+            or rec.get("train_step_it_per_s") is None \
+            or rec.get("platform") != "gpu" \
+            or launches.get("rasterize_fwd") != steps \
+            or launches.get("rasterize_bwd") != steps:
+        raise AssertionError(f"gs2d_torch.cli.bench: {rec}")
+    labels = ("headline", "train_step", "uniform")
+    if [name for name, _, _ in held] != \
+            ["measure", "measure_train_step", "measure"]:
+        raise AssertionError(f"bench measurements: {held}")
+    errs = {}
+    for seed, (label, (_, a1, a2)) in enumerate(zip(labels, held)):
+        e1 = hold_fwd(a1, seed, f"bench {label} K1")
+        e2 = hold_bwd(a2, seed, f"bench {label} K2")
+        errs[label] = {"slots": int(a1[1].numel()), "k1_max_abs_err": e1,
+                       "k2_max_abs_err": e2[0], "k2_max_norm_err": e2[1]}
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], e1)
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], e2[0])
+        bwd["max_norm_err"] = max(bwd["max_norm_err"], e2[1])
+    print("bench kernels vs plain, busiest and "
+          f"{SAMPLED_TILES} seeded tiles " + json.dumps(errs), flush=True)
+    del held
+    report.update(rec)
+
+
 def gather_bytes(table, idx) -> int:
     """What the row gather must move: the table and the indices read
     once, the (M, F) output written once."""
@@ -1095,7 +1325,7 @@ def time_gather(table, idx) -> dict:
 
 
 def gather_phase(report, table0, gid0):
-    """Phase 8: the row-gather kernel (G1–G5) bit for bit against
+    """Phase 9: the row-gather kernel (G1–G5) bit for bit against
     table[idx] for every F of GATHER_F, M in {0, 1, 1000, GATHER_M}, both
     index types (negative indices included) and out-of-range indices,
     which must raise; then timed at the probes' shape and at view 0's
@@ -1179,7 +1409,7 @@ def psnr(img, ref) -> float:
 
 
 def small_loop():
-    """Phase 7: the card twin of tests/test_loop_e2e.py — three 64x32
+    """Phase 8: the card twin of tests/test_loop_e2e.py — three 64x32
     views of a 40-splat scene, a learner from 12 displaced flat-gray
     points, 300 iterations of train() with densify every 20 and a reset
     every 120. → (N, losses, PSNR before, PSNR after)."""
@@ -1415,7 +1645,7 @@ def same_state(a, b) -> bool:
 
 
 def full_loop(report, state):
-    """Phase 9: train() at full width. The 1M-splat SH-3 scene is the
+    """Phase 10: train() at full width. The 1M-splat SH-3 scene is the
     true scene: its renders of the VIEW_DEGREES views (zero background)
     are the ground truth. The learner is that scene perturbed with
     default_rng(2) (xyz + N(0, 0.01²), scaling + N(0, 0.1²), features_dc +
@@ -1756,7 +1986,7 @@ def blender_check(work: Path, surf) -> dict:
 
 
 def data_path(report):
-    """Phase 10: the data path on a dataset on disk, through the CLIs'
+    """Phase 12: the data path on a dataset on disk, through the CLIs'
     ``main(argv)``: write a COLMAP dataset of DATA_VIEWS 1920x1080 views
     (binary sparse/0, PINHOLE, RGB PNGs by the port's encoder) rendered
     from DATA_SURFELS surfels with the procedural colours and a 30k-point
@@ -2045,6 +2275,7 @@ def main() -> int:
     state = bench_state()
     full_width(fwd, state)
     full_train(bwd, state)
+    cull_phase(fwd, bwd, state)
     n, losses, p0, p1 = small_loop()
     if n <= 12 or not all(math.isfinite(x) for x in losses) \
             or not p1 > p0 + 2.0:
@@ -2056,6 +2287,9 @@ def main() -> int:
     loop = {}
     full_loop(loop, state)
     del state
+    torch.cuda.empty_cache()
+    bench = {}
+    bench_phase(bench, fwd, bwd)
     dpath = {}
     data_path(dpath)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], dpath["fwd_err"])
@@ -2068,10 +2302,14 @@ def main() -> int:
         dpath["train_counts"]["rasterize_fwd"]
     fwd["launches_by_path"]["data_path_render"] = \
         dpath["render_counts"]["rasterize_fwd"]
+    fwd["launches_by_path"]["bench"] = \
+        bench["kernel_launches"]["rasterize_fwd"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     bwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_bwd"]
     bwd["launches_by_path"]["data_path_train"] = \
         dpath["train_counts"]["rasterize_bwd"]
+    bwd["launches_by_path"]["bench"] = \
+        bench["kernel_launches"]["rasterize_bwd"]
     bwd["launches"] = sum(bwd["launches_by_path"].values())
     gat["launches_by_path"] = {
         "loop": loop["launches"]["gather_rows"],
@@ -2084,10 +2322,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "bound_detail", "ptxas")
-    fwd_keys = keys + ("plain_ms_small", "kernel_ms_small",
+    fwd_keys = keys + ("ms_cull_off", "plain_ms_small", "kernel_ms_small",
                        "full_image_px_agree", "full_image_med_agree",
                        "full_image_contrib_agree")
-    bwd_keys = keys + ("max_norm_err", "step_ms", "card_steps_per_s")
+    bwd_keys = keys + ("ms_cull_off", "max_norm_err", "step_ms",
+                       "card_steps_per_s")
     gat_keys = keys + ("wrapper_ms", "replaces_also", "probe_shape",
                        "densify")
     print(json.dumps({"kernels": [{k: fwd[k] for k in fwd_keys},

@@ -88,17 +88,32 @@ class _Composite(torch.autograd.Function):
                 None, None)
 
 
-def rasterize(pre: PreprocessOut, width: int, height: int):
+def bin_preprocessed(pre: PreprocessOut, width: int, height: int,
+                     cull: bool = True) -> BinningOut:
+    """``bin_gaussians`` on preprocess output, with the interval cull on
+    (the JAX package's ``RasterizeConfig.cull`` default) unless ``cull``
+    is False: the cull reads (A, B, C) and rho2max, detached."""
+    cull_abc = tuple(x.detach() for x in (pre.A, pre.B, pre.C)) \
+        if cull else None
+    return bin_gaussians(pre.center2d, pre.extent, pre.depth, pre.visible,
+                         width, height, cull_abc=cull_abc,
+                         rho2max=pre.rho2max.detach() if cull else None)
+
+
+def rasterize(pre: PreprocessOut, width: int, height: int,
+              cull: bool = True):
     """Rasterize preprocessed Gaussians.
 
     Returns (out, aux): out is (NUM_OUT, height, width) float32 (rgb
     carries no background — callers composite ``rgb + (1-alpha)*bg``);
-    aux holds ``num_pairs`` and the kernel's per-pixel ``med_idx`` and
-    ``n_contrib``, tile-major (T, TILE_PX). Differentiable with respect to
-    every field of ``pre`` that the records carry.
+    aux holds ``num_pairs`` (after the cull) and the kernel's per-pixel
+    ``med_idx`` and ``n_contrib``, tile-major (T, TILE_PX), whose slot
+    indices are those of the culled lists. Differentiable with respect to
+    every field of ``pre`` that the records carry. ``cull`` is the
+    counterpart of ``RasterizeConfig.cull`` (``bin_preprocessed``); it
+    changes which pairs the kernels see, not the image.
     """
-    bins = bin_gaussians(pre.center2d, pre.extent, pre.depth, pre.visible,
-                         width, height)
+    bins = bin_preprocessed(pre, width, height, cull)
     out_tiles, med_idx, n_contrib = _Composite.apply(
         pack_entries(pre), bins, width, height)
     return untile(out_tiles, width, height), {

@@ -94,11 +94,14 @@ def render(camera: Camera, state: GaussianState, bg: torch.Tensor, *,
            override_color: Optional[torch.Tensor] = None,
            noise: Optional[torch.Tensor] = None,
            screen_offsets: Optional[torch.Tensor] = None,
-           depth_ratio: float = 0.0, device="cuda") -> dict:
+           depth_ratio: float = 0.0, cull: bool = True,
+           device="cuda") -> dict:
     """Render ``state`` from ``camera`` on ``device`` (default ``"cuda"``).
 
     Every tensor input must already lie on ``device``; a CPU render is
     asked for with ``device="cpu"`` and runs the kernels' plain versions.
+    ``cull`` is the binning's interval cull (``rasterize``), on by
+    default as in the JAX package.
     """
     device = torch.device(device)
     tensors = [("camera", camera.world_view), ("state", state.params.xyz),
@@ -111,5 +114,5 @@ def render(camera: Camera, state: GaussianState, bg: torch.Tensor, *,
                   scaling_modifier=scaling_modifier,
                   override_color=override_color, noise=noise,
                   screen_offsets=screen_offsets)
-    out, aux = rasterize(pre, camera.width, camera.height)
+    out, aux = rasterize(pre, camera.width, camera.height, cull=cull)
     return bridge(camera, pre, out, aux, bg, depth_ratio)

@@ -59,7 +59,8 @@ def compute_losses(pkg: dict, gt_image: torch.Tensor, iteration: int,
 def loss_and_grads(state: GaussianState, camera: Camera,
                    gt_image: torch.Tensor, iteration: int, bg: torch.Tensor,
                    opt_cfg: OptimizationParams, *, max_sh_degree: int = 3,
-                   depth_ratio: float = 0.0, device="cuda"):
+                   depth_ratio: float = 0.0, cull: bool = True,
+                   device="cuda"):
     """The step's loss and its gradients, at ``state.active_sh_degree``.
 
     Returns (total, terms, grads, screen_grads, pkg): the loss terms of
@@ -74,7 +75,7 @@ def loss_and_grads(state: GaussianState, camera: Camera,
     pkg = render(camera, dataclasses.replace(
         state, params=GaussianParams(**leaves)), bg,
         max_sh_degree=max_sh_degree, screen_offsets=offsets,
-        depth_ratio=depth_ratio, device=device)
+        depth_ratio=depth_ratio, cull=cull, device=device)
     total, terms = compute_losses(pkg, gt_image, iteration, opt_cfg)
     grads = torch.autograd.grad(total, list(leaves.values()) + [offsets])
     return (total.detach(), {k: v.detach() for k, v in terms.items()},
@@ -94,10 +95,11 @@ def apply_update(state: GaussianState, opt: AdamState, grads: GaussianParams,
 
 def make_train_step(opt_cfg: OptimizationParams, *, max_sh_degree: int = 3,
                     spatial_lr_scale: float = 1.0, depth_ratio: float = 0.0,
-                    device="cuda"):
+                    cull: bool = True, device="cuda"):
     """Builds ``train_step(ts, camera, gt_image, iteration, bg,
     lr_iteration=None) -> (TrainState, metrics)`` on ``device`` (default
-    ``"cuda"``); every tensor it is given must lie there."""
+    ``"cuda"``); every tensor it is given must lie there. ``cull`` is the
+    render's interval cull, on by default as in the JAX step."""
     device = torch.device(device)
 
     def lr_for(iteration: int) -> float:
@@ -124,7 +126,7 @@ def make_train_step(opt_cfg: OptimizationParams, *, max_sh_degree: int = 3,
         total, terms, grads, screen_grads, pkg = loss_and_grads(
             gs, camera, gt_image, iteration, bg, opt_cfg,
             max_sh_degree=max_sh_degree, depth_ratio=depth_ratio,
-            device=device)
+            cull=cull, device=device)
         xyz_lr = lr_for(iteration if lr_iteration is None
                         else int(lr_iteration))
         lrs = make_lrs(xyz_lr, feature_lr=opt_cfg.feature_lr,

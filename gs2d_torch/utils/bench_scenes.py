@@ -1,7 +1,10 @@
 """Trained-scene-like synthetic scenes for benchmarking.
 
 NumPy copy of ``gs2d_tpu/utils/bench_scenes.py`` (the port imports nothing
-from the JAX package); the same seed gives the same arrays.
+from the JAX package); the same seed gives the same arrays. Besides it:
+``build_uniform_scene`` (``bench.py:200-207``) and ``bench_state``, the
+trained-like scene as a ``GaussianState`` at SH degree 3, which
+``gs2d_torch.cli.bench`` and ``chip_smoke.py`` train and render.
 
 The round-1 bench used 100k uniform random Gaussians (~520k tile pairs at
 1080p) — far below the multi-million pair counts of real trained scenes
@@ -22,6 +25,10 @@ regardless of N (more splats → smaller splats, as densification produces).
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..models.gaussians import GaussianParams, GaussianState
+from ..ops.sh import rgb_to_sh
 
 
 def make_trained_like_scene(n: int, seed: int = 0, overlap: float = 3.0):
@@ -107,3 +114,40 @@ def make_trained_like_scene(n: int, seed: int = 0, overlap: float = 3.0):
 
     rgb = rng.random((n, 3)).astype(np.float32)
     return pts, scales, quats, opac, rgb
+
+
+def build_uniform_scene(n: int, seed: int = 0):
+    """``bench.py``'s historical scene: ``n`` uniform random Gaussians in
+    a 3-unit cube, as (means, scales, quats, opacity, rgb) NumPy arrays."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32),
+            rng.uniform(0.004, 0.02, (n, 2)).astype(np.float32),
+            rng.normal(size=(n, 4)).astype(np.float32),
+            rng.uniform(0.3, 0.9, (n,)).astype(np.float32),
+            rng.random((n, 3)).astype(np.float32))
+
+
+def bench_state(n: int, *, rest_seed=None, device="cuda"):
+    """``make_trained_like_scene(n)`` as a ``GaussianState`` at SH degree
+    3 on ``device``: DC colours from its rgb, opacities clipped to
+    [1e-4, 1 − 1e-4] before the logit (``bench.py:157-168``). The 45 SH
+    rest coefficients are zero, as the JAX bench has them, or with
+    ``rest_seed`` normal draws of scale 0.1 from that seed."""
+    means, scales, quats, opac, rgb = make_trained_like_scene(n)
+    if rest_seed is None:
+        rest = np.zeros((n, 15, 3), np.float32)
+    else:
+        rest = (np.random.default_rng(rest_seed).normal(size=(n, 15, 3))
+                * 0.1).astype(np.float32)
+    opac = np.clip(opac, 1e-4, 1 - 1e-4)
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                               device=device)
+
+    return GaussianState(params=GaussianParams(
+        xyz=dev(means), features_dc=dev(rgb_to_sh(rgb)[:, None, :]),
+        features_rest=dev(rest), scaling=dev(np.log(scales)),
+        rotation=dev(quats),
+        opacity=dev(np.log(opac / (1 - opac))[:, None])),
+        active_sh_degree=3)

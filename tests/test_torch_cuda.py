@@ -17,7 +17,8 @@ from gs2d_torch.config import OptimizationParams
 from gs2d_torch.models.gaussians import GaussianParams, GaussianState
 from gs2d_torch.ops import gather
 from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
-from gs2d_torch.ops.rasterize.api import pack_entries, rasterize
+from gs2d_torch.ops.rasterize.api import (bin_preprocessed, pack_entries,
+                                          rasterize)
 from gs2d_torch.ops.rasterize.binning import bin_gaussians
 from gs2d_torch.ops.rasterize.preprocess import preprocess
 from gs2d_torch.render.renderer import prepare, render
@@ -65,6 +66,29 @@ def test_kernel_matches_plain_version(cuda):
     torch.testing.assert_close(out, rout, rtol=TOL, atol=TOL)
     assert (med == rmed).float().mean() >= 0.999
     assert (nc == rnc).float().mean() >= 0.999
+
+
+def test_kernel_matches_plain_version_on_culled_lists(cuda):
+    """K1 on the interval-culled lists (the default) against its plain
+    version on the same lists; the image equals the un-culled one."""
+    cam, (m, s, q, o, c) = _scene(cuda)
+    pre = preprocess(m, s, q, o, cam.world_view, cam.full_proj, cam.campos,
+                     cam.width, cam.height, colors=c)
+    packed = pack_entries(pre)
+    outs = []
+    for cull in (True, False):
+        b = bin_preprocessed(pre, cam.width, cam.height, cull)
+        args = (packed, b.gid, b.tile_start, b.tile_count, cam.width,
+                cam.height)
+        out, med, nc = kernel_fwd.rasterize_fwd(*args)
+        outs.append((b.num_pairs, out))
+        if cull:
+            rout, rmed, rnc = kernel_fwd.rasterize_fwd_reference(*args)
+            torch.testing.assert_close(out, rout, rtol=TOL, atol=TOL)
+            assert (med == rmed).float().mean() >= 0.999
+            assert (nc == rnc).float().mean() >= 0.999
+    assert outs[0][0] < outs[1][0]
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=TOL, atol=TOL)
 
 
 def test_render_cuda_matches_cpu(cuda):

@@ -51,7 +51,8 @@ def test_renderer_imports_with_jax_blocked():
                "import gs2d_torch.utils.render_paths\n"
                "import gs2d_torch.utils.synthetic_scene\n"
                "import gs2d_torch.cli.train, gs2d_torch.cli.render\n"
-               "import gs2d_torch.cli.metrics\n"
+               "import gs2d_torch.cli.metrics, gs2d_torch.cli.bench\n"
+               "import gs2d_torch.utils.bench_scenes\n"
                "print(sorted(m for m in sys.modules "
                "if m.startswith(('jax', 'gs2d_tpu'))))\n")
     assert out.strip() == "['gs2d_tpu', 'jax']"   # only the blocked stubs

@@ -144,7 +144,7 @@ def _j_loss(cam, cfg, cot):
     return loss
 
 
-def _t_grads(arrays, w, h, cot, poison_row=None):
+def _t_grads(arrays, w, h, cot, poison_row=None, cull=True):
     cam = port_camera(w, h)
     ps = [to_t(x).requires_grad_() for x in arrays]
     means, scales, quats, opac, rgb, noise, offsets = ps
@@ -155,7 +155,7 @@ def _t_grads(arrays, w, h, cot, poison_row=None):
         bad = torch.zeros_like(pre.A)
         bad[poison_row] = float("inf")
         pre = pre._replace(A=pre.A + bad)
-    out, _ = rasterize(pre, w, h)
+    out, _ = rasterize(pre, w, h, cull=cull)
     return torch.autograd.grad((out * cot).sum(), ps)
 
 
@@ -173,7 +173,27 @@ def test_rasterize_grads_match_jax(seed, n, opaque):
     g_jax = jax.grad(_j_loss(lookat_camera(w, h), cfg, jnp.asarray(cot)),
                      argnums=tuple(range(7)))(
                          *(jnp.asarray(x) for x in arrays))
-    g_port = _t_grads(arrays, w, h, to_t(cot))
+    g_port = _t_grads(arrays, w, h, to_t(cot), cull=False)
+    names = ["means", "scales", "quats", "opac", "rgb", "noise", "offsets"]
+    for name, a, b in zip(names, g_jax, g_port):
+        assert_grad_close(b.numpy(), a, name)
+
+
+@pytest.mark.parametrize("seed,n,opaque", CASES)
+def test_rasterize_grads_match_jax_culled(seed, n, opaque):
+    """The same with the interval cull on in both packages (the JAX
+    default, RasterizeConfig.cull=True): the kernels see the culled lists,
+    and gradients stay at the gradient bar."""
+    w, h = 128, 64
+    arrays = _scene(seed, n, opaque) + (np.zeros((n, 2), np.float32),)
+    cot = np.random.default_rng(seed + 100).normal(
+        size=(15, h, w)).astype(np.float32)
+    cfg = RasterizeConfig(width=w, height=h, pairs_capacity=1 << 13,
+                          chunk=16, interpret=True, cull=True)
+    g_jax = jax.grad(_j_loss(lookat_camera(w, h), cfg, jnp.asarray(cot)),
+                     argnums=tuple(range(7)))(
+                         *(jnp.asarray(x) for x in arrays))
+    g_port = _t_grads(arrays, w, h, to_t(cot), cull=True)
     names = ["means", "scales", "quats", "opac", "rgb", "noise", "offsets"]
     for name, a, b in zip(names, g_jax, g_port):
         assert_grad_close(b.numpy(), a, name)

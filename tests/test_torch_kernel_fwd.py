@@ -49,7 +49,7 @@ def test_kernel_plain_version_matches_pallas_interpret():
                                rtol=2e-4, atol=2e-4)
     np.testing.assert_array_equal(med.numpy(),
                                   np.asarray(j_med)[:, 0].astype(np.int32))
-    img, _ = rasterize(tp, w, h)
+    img, _ = rasterize(tp, w, h, cull=False)
     np.testing.assert_allclose(img.numpy(), np.asarray(j_img),
                                rtol=2e-4, atol=2e-4)
     # n_contrib: one past the last composited slot, so it bounds med_idx

@@ -2,9 +2,11 @@
 
 The JAX side renders a capacity-padded state (inactive rows included) at
 128x64 with SH degree 3 through its Pallas kernel in interpret mode,
-un-culled so the pair counts are comparable. The port renders the same
-model on the CPU, carried over by ``state_from_numpy`` or read back from
-the JAX package's PLY by the port's ``load_ply``.
+un-culled, and the port renders un-culled too so the pair counts are
+comparable; one case runs both with the interval cull on (the default of
+both), where the culled pair counts must agree as well. The port renders
+the same model on the CPU, carried over by ``state_from_numpy`` or read
+back from the JAX package's PLY by the port's ``load_ply``.
 
 Bar: every key within rtol/atol 2e-4 (tests/test_rasterize_fwd.py:79-80);
 radii, visibility and pair counts exactly equal; depth_median may differ
@@ -98,16 +100,20 @@ def _compare(j_out, t_out, active):
     assert t_out["num_pairs"] == int(j_out["num_pairs"]) > 0
 
 
-@pytest.fixture(scope="module")
-def jax_render():
+def _jax_render(cull):
     import jax.numpy as jnp
     state, fields, active, noise = _jax_state()
     cfg = RasterizeConfig(width=W, height=H, pairs_capacity=1 << 14,
-                          chunk=16, interpret=True, cull=False)
+                          chunk=16, interpret=True, cull=cull)
     bg = np.array([0.2, 0.5, 0.9], np.float32)
     out = j_render(lookat_camera(W, H), state, cfg, jnp.asarray(bg),
                    max_sh_degree=3, noise=jnp.asarray(noise))
     return state, fields, active, noise, bg, out
+
+
+@pytest.fixture(scope="module")
+def jax_render():
+    return _jax_render(cull=False)
 
 
 def test_render_state_from_numpy(jax_render):
@@ -116,8 +122,22 @@ def test_render_state_from_numpy(jax_render):
                                device="cpu")
     assert t_state.params.xyz.shape[0] == active.sum()
     t_out = t_render(port_camera(W, H), t_state, to_t(bg), max_sh_degree=3,
+                     noise=to_t(noise[active]), cull=False, device="cpu")
+    _compare(j_out, t_out, active)
+
+
+def test_render_culled_matches_jax_culled():
+    """Both packages with the interval cull on, their default: the same
+    bar, and the culled pair counts equal and below the un-culled one."""
+    state, fields, active, noise, bg, j_out = _jax_render(cull=True)
+    t_state = state_from_numpy(**fields, active=active, active_sh_degree=3,
+                               device="cpu")
+    t_out = t_render(port_camera(W, H), t_state, to_t(bg), max_sh_degree=3,
                      noise=to_t(noise[active]), device="cpu")
     _compare(j_out, t_out, active)
+    full = t_render(port_camera(W, H), t_state, to_t(bg), max_sh_degree=3,
+                    noise=to_t(noise[active]), cull=False, device="cpu")
+    assert t_out["num_pairs"] < full["num_pairs"]
 
 
 def test_render_ply_round_trip(jax_render, tmp_path):
@@ -128,7 +148,7 @@ def test_render_ply_round_trip(jax_render, tmp_path):
     j_save_ply(state, path)
     t_state = t_load_ply(path, max_sh_degree=3, device="cpu")
     t_out = t_render(port_camera(W, H), t_state, to_t(bg), max_sh_degree=3,
-                     noise=to_t(noise[active]), device="cpu")
+                     noise=to_t(noise[active]), cull=False, device="cpu")
     _compare(j_out, t_out, active)
 
     path2 = str(tmp_path / "port.ply")

@@ -1,7 +1,8 @@
 """Port parity of the training slice: the image losses, the LR schedule,
 Adam, the densification statistics and one whole ``train_step``, against
 the JAX package on the same seeded NumPy inputs (its Pallas kernels in
-interpret mode, un-culled, chunk 16), plus an overfit run on the CPU.
+interpret mode, chunk 16; un-culled in both, and in one case culled in
+both, the default of both), plus an overfit run on the CPU.
 
 Bars: 1e-6 for the losses and Adam (float32 maths in the same order),
 1e-7 relative for the LR schedule, exact for the densification
@@ -217,18 +218,21 @@ def _j_loss_fn(state, cam, rcfg, gt, it, bg, opt_cfg, depth_ratio):
     return loss_fn
 
 
-STEP_CASES = [(1, {}, 0.0), (8000, {"lambda_dist": 10.0}, 1.0)]
+STEP_CASES = [(1, {}, 0.0, False),
+              (8000, {"lambda_dist": 10.0}, 1.0, False),
+              (8000, {"lambda_dist": 10.0}, 1.0, True)]
 
 
 @pytest.fixture(scope="module", params=STEP_CASES,
-                ids=["iter1-defaults", "iter8000-dist10-median"])
+                ids=["iter1-defaults", "iter8000-dist10-median",
+                     "iter8000-dist10-median-culled"])
 def step_pair(request):
-    it, opt_kw, depth_ratio = request.param
+    it, opt_kw, depth_ratio, cull = request.param
     state, fields, stats, active = _jax_state()
     gt = np.random.default_rng(1).random((3, H, W), np.float32)
     bg = np.zeros(3, np.float32)
     rcfg = RasterizeConfig(width=W, height=H, pairs_capacity=1 << 13,
-                           chunk=16, interpret=True, cull=False)
+                           chunk=16, interpret=True, cull=cull)
     j_opt_cfg = JOptParams(**opt_kw)
     jcam = lookat_camera(W, H)
     j_step = j_make_train_step(rcfg, j_opt_cfg, max_sh_degree=3,
@@ -255,15 +259,16 @@ def step_pair(request):
     t_opt_cfg = TOptParams(**opt_kw)
     tcam = port_camera(W, H)
     t_step = t_make_train_step(t_opt_cfg, max_sh_degree=3,
-                               depth_ratio=depth_ratio, device="cpu")
+                               depth_ratio=depth_ratio, cull=cull,
+                               device="cpu")
     t_ts, t_m = t_step(TTrainState(gaussians=t_state, opt=t_opt), tcam,
                        to_t(gt), it, to_t(bg))
     t_ramp = dataclasses.replace(t_state, active_sh_degree=min(it // 1000, 3))
     t_grads = loss_and_grads(t_ramp, tcam, to_t(gt), it, to_t(bg), t_opt_cfg,
                              max_sh_degree=3, depth_ratio=depth_ratio,
-                             device="cpu")
+                             cull=cull, device="cpu")
     with torch.no_grad():
-        out, _ = t_rasterize(prepare(tcam, t_ramp), W, H)
+        out, _ = t_rasterize(prepare(tcam, t_ramp), W, H, cull=cull)
     lam_d = t_opt_cfg.lambda_dist if it > 3000 else 0.0
     return dict(it=it, active=active, j_ts=j_ts, j_m=j_m, j_total=j_total,
                 j_gp=j_gp, j_goff=j_goff, t_ts=t_ts, t_m=t_m,
