@@ -6,9 +6,10 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
 (``gs2d_torch.render.renderer.render``), the training step
 (``gs2d_torch.train.step.make_train_step``), the training loop
 (``gs2d_torch.train.loop.train``), the benchmark entry point
-(``python -m gs2d_torch.cli.bench``) and the data path (the train, render
-and metrics CLIs on a dataset on disk) on the card, all with the binning's
-interval cull on, the default:
+(``python -m gs2d_torch.cli.bench``), the data path (the train, render
+and metrics CLIs on a dataset on disk) and the eval slice (JPEG scenes,
+LPIPS, the DTU and TnT scores, the M360 harness) on the card, all with the
+binning's interval cull on, the default:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel, compiled together, with the build seconds and
@@ -99,12 +100,28 @@ interval cull on, the default:
    around the render CLI; the latest K1 and K2 calls of the train CLI and
    the latest K1 call of the render CLI are launched again on their
    arguments and held against the plain versions on sampled tiles;
-13. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+13. the eval slice, on the data path's model and mesh: every committed
+   JPEG fixture (tests/fixtures/jpeg) through the C entropy decoder with
+   the pixel stages on the card and through the Python decoder, equal
+   coefficients and bytes equal to the committed PIL decode (the
+   progressive one must raise), the 1080p fixture's entropy (host) and
+   pixel (card) ms; a COLMAP scene of the fixtures through ``Scene`` at
+   -r 1 and by default (shapes, pixels, ms per view); the M360 harness
+   (``gs2d_torch.cli.m360_eval``) on it as ``images_4``, EVAL_ITERS
+   iterations, the held-out view scored with LPIPS from a seeded
+   random-weights npz (K1 and K2 counted from zero under ``eval`` and
+   held against their plain versions); ``cli.metrics`` with LPIPS on the
+   data path's 1600x900 held-out views, one pair against the CPU within
+   LPIPS_REL, with TF32 turned on by the caller, and the ms per view;
+   the DTU chamfer and the TnT F-score of the bounded mesh against area
+   samples of the true surfels, gated, with their seconds; a 1600x1200
+   mask dilated on the card as on the CPU;
+14. one ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths, error, time, plain-version time, library-call time where there
    is one, ptxas's report and the bound computed from this run's inputs
    (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32; K1's and K2's operations
    on their composited pairs, the pair counts under ``bound_detail``);
-14. the card line, then ``{"ok": true, "device": {...}}`` as the last
+15. the card line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Any failure exits non-zero before the last line is printed; so does a
@@ -1996,7 +2013,10 @@ def data_path(report):
     from zero around the train and the render CLI; the kernels held
     against their plain versions at this path's shapes (K1 and K2 from
     the train CLI, K1 from the render CLI, every densify through the
-    plain gather). ``report`` gets the counts and K1's and K2's errors."""
+    plain gather). ``report`` gets the counts, K1's and K2's errors, and
+    what the eval phase scores: the model directory, the bounded mesh
+    (post-processed), the true surfels and the mesh's voxel; the dataset
+    stays on disk until that phase deletes it."""
     import json as _json
     import shutil
 
@@ -2133,6 +2153,7 @@ def data_path(report):
     # integrate's byte bound: the volume's five float32 channels read and
     # written once, the view's depth and colour read once
     vol, depth = timers[1].last_args[:2]
+    report["voxel"] = float(vol.voxel_size)
     nbytes = vol.tsdf.numel() * 5 * 4 * 2 + depth.numel() * 4 * 4
     bounded["integrate"].update(
         grid=list(vol.tsdf.shape), bytes=nbytes,
@@ -2218,13 +2239,422 @@ def data_path(report):
                              f"report {p_end:.3f} dB")
     print(f"data path metrics ({metrics_s:.1f} s): " + json.dumps(m),
           flush=True)
-    shutil.rmtree(work, ignore_errors=True)
-    report.update(train_counts=train_counts, render_counts=render_counts)
+    # the eval phase scores this model and mesh, then deletes ``work``
+    report.update(train_counts=train_counts, render_counts=render_counts,
+                  work=work, model=model, surf=surf,
+                  mesh=rres["mesh"].replace(".ply", "_post.ply"))
     print("data path " + json.dumps({
         "write_s": write_s, "codec": codec, "scene_load_s": seen["load_s"],
         "train_s": train_s, "n": [n0, n_end], "psnr": [p1, p_end],
         "windows_ms_per_it": [w["ms_per_it"] for w in wins],
         "metrics": m, "metrics_s": metrics_s}), flush=True)
+
+
+# --- phase 13: the eval slice ------------------------------------------------
+
+FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
+EVAL_DEVICE = "cuda"
+EVAL_ITERS = 300                   # the M360 harness on the JPEG scene
+JPEG_REPS = 10
+LPIPS_REL = 1e-4                   # tests/test_lpips.py:98, card vs CPU
+LPIPS_REPS = 5
+GT_SAMPLES = 1_000_000             # area samples of the true surfels
+# the geometry scores run on the host (cKDTree), as in the JAX package: at
+# tau = the mesh's voxel, ICP with the reference's first-stage reach (20
+# tau) over 713k x 1.7M points took 988 s in the first run, so ICP works
+# on clouds downsampled at 2 tau with the reach of its last stage (2 tau),
+# and DTU thins at 2 voxels
+GEO_VOXELS = 2
+# gates a little past the readings of the first runs, the same in each
+# (H100 80GB HBM3, 700 W; PERF.md §5)
+EVAL_PSNR_MIN = 17.5               # the M360 harness's held-out PSNR, 18.37
+DTU_OVERALL_MAX = 1.0              # DTU chamfer (scene units), 0.9736
+TNT_FSCORE_MIN = 0.06              # TnT F-score at tau = the voxel, 0.0641
+ICP_DRIFT_VOXELS = 1               # ICP's largest pose change, 0.56 voxel
+
+
+def jpeg_fixtures(report):
+    """Every committed JPEG fixture through the main path (the C entropy
+    decoder on the host, the pixel stages on the card) and the plain path
+    (the Python entropy decoder, the pixel stages on the CPU): equal
+    coefficients, and bytes equal to the fixture's committed PIL decode
+    (the PNG beside it). The progressive one must raise. Times the 1080p
+    fixture's two stages, each a mean of JPEG_REPS."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.scene import images, jpeg
+    index = json.loads((FIXTURES / "index.json").read_text())
+    checked = []
+    for name, entry in sorted(index.items()):
+        path = str(FIXTURES / name)
+        if "decoded" not in entry:
+            try:
+                jpeg.read_coefficients(path, "c")
+            except ValueError as e:
+                checked.append({"name": name, "raised": str(e)[-60:]})
+                continue
+            raise AssertionError(f"jpeg: {name} decoded; it must raise")
+        ref = images.decode_png(str(FIXTURES / entry["decoded"]))
+        main_c = jpeg.read_coefficients(path, "c")
+        plain_c = jpeg.read_coefficients(path, "plain")
+        for a, b in zip(main_c.components, plain_c.components):
+            if not np.array_equal(a.coef, b.coef):
+                raise AssertionError(f"jpeg {name}: C and Python entropy "
+                                     "decoders disagree")
+        card = jpeg.pixels(main_c, EVAL_DEVICE)
+        if card.device.type != EVAL_DEVICE:
+            raise AssertionError("jpeg: pixel stages left the card")
+        got = card.cpu().numpy()
+        plain = jpeg.pixels(plain_c, "cpu").numpy()
+        via_dataset = images.decode_image(path, EVAL_DEVICE)
+        for what, arr in (("card", got), ("plain", plain),
+                          ("decode_image", via_dataset)):
+            if arr.shape != ref.shape or not np.array_equal(arr, ref):
+                raise AssertionError(f"jpeg {name}: {what} path differs "
+                                     "from the PIL decode")
+        checked.append({"name": name, "size": entry["size"],
+                        "bytes_equal": True})
+    big = str(FIXTURES / "view_1080p_420_q95.jpg")
+    t0 = time.perf_counter()
+    for _ in range(JPEG_REPS):
+        c = jpeg.read_coefficients(big, "c")
+    entropy_ms = (time.perf_counter() - t0) * 1e3 / JPEG_REPS
+    t0 = time.perf_counter()
+    jpeg.read_coefficients(big, "plain")
+    plain_entropy_ms = (time.perf_counter() - t0) * 1e3
+    jpeg.pixels(c, EVAL_DEVICE)
+    pixel_ms = cuda_ms(lambda: jpeg.pixels(c, EVAL_DEVICE), JPEG_REPS)
+    t0 = time.perf_counter()
+    for _ in range(JPEG_REPS):
+        images.decode_image(big, EVAL_DEVICE)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / JPEG_REPS
+    report["jpeg"] = {"fixtures": checked, "entropy_ms_1080p": entropy_ms,
+                      "pixel_ms_1080p": pixel_ms,
+                      "decode_image_ms_1080p": decode_ms,
+                      "plain_entropy_ms_1080p": plain_entropy_ms}
+    print("eval jpeg " + json.dumps(report["jpeg"]), flush=True)
+
+
+def jpeg_colmap_scene(dst: Path, images_dir: str):
+    """A COLMAP scene whose images are the committed JPEG fixtures, the
+    gray and progressive ones left out: one PINHOLE camera per fixture
+    size, each image at the orbit view it was rendered from
+    (``tests/fixtures/jpeg/index.json``), named v<view>.JPG, and the seed
+    cloud of the fixtures' surfels. Returns {name: (width, height)}."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from gs2d_torch.ops.transforms import fov2focal
+    from gs2d_torch.scene import colmap
+    from gs2d_torch.utils import synthetic_scene as ss
+    index = json.loads((FIXTURES / "index.json").read_text())
+    model = dst / "sparse" / "0"
+    model.mkdir(parents=True)
+    (dst / images_dir).mkdir()
+    cams, imgs, sizes = {}, {}, {}
+    for name, e in sorted(index.items()):
+        if "decoded" not in e or "gray" in name:
+            continue
+        w, h = e["size"]
+        views = ss.orbit(e["views"])
+        i = len(imgs) + 1
+        f = fov2focal(math.radians(e["fovx_deg"]), w)
+        cams[i] = colmap.ColmapCamera(i, "PINHOLE", w, h, np.array(
+            [f, f, w / 2.0, h / 2.0]))
+        w2c = ss.w2c_of(views[e["view"]])
+        jpg = f"v{e['view']}.JPG"
+        shutil.copyfile(FIXTURES / name, dst / images_dir / jpg)
+        imgs[i] = colmap.ColmapImage(i, colmap.rotmat2qvec(w2c[:3, :3]),
+                                     w2c[:3, 3], i, jpg, np.zeros((0, 2)),
+                                     np.zeros((0,), np.int64))
+        sizes[jpg[:-4]] = (w, h)
+    colmap.write_cameras_binary(cams, str(model / "cameras.bin"))
+    colmap.write_images_binary(imgs, str(model / "images.bin"))
+    surf = ss.rich_surfels(next(iter(index.values()))["surfels"])
+    xyz, rgb = ss.seed_cloud(surf[0], surf[4])
+    colmap.write_points3d_binary(
+        xyz.astype(np.float64),
+        np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8),
+        str(model / "points3D.bin"))
+    return sizes
+
+
+def jpeg_scene_load(report, work: Path):
+    """The JPEG scene through ``Scene`` on the card at -r 1 and at the
+    default policy (the 1920 px view brought to 1600): shapes, pixels at
+    -r 1 equal to the PIL decodes, and the load time per view."""
+    import numpy as np
+
+    import gs2d_torch.scene.scene as scene_mod
+    from gs2d_torch.config import ModelParams
+    from gs2d_torch.scene.images import decode_png
+    index = json.loads((FIXTURES / "index.json").read_text())
+    refs = {f"v{e['view']}": e["decoded"] for e in index.values()
+            if "decoded" in e}
+    src = work / "jpeg_scene"
+    sizes = jpeg_colmap_scene(src, "images")
+    out = {}
+    for res in (1, -1):
+        with CallTimer(scene_mod, "load_image") as timer:
+            t0 = time.perf_counter()
+            scene = scene_mod.Scene(ModelParams(
+                source_path=str(src), model_path="", resolution=res,
+                sh_degree=3), shuffle=False, device=EVAL_DEVICE)
+            total_s = time.perf_counter() - t0
+        views = scene.get_train_cameras()
+        if len(views) != len(sizes):
+            raise AssertionError(f"jpeg scene: {len(views)} views of "
+                                 f"{len(sizes)}")
+        for cd in views:
+            w, h = sizes[cd.image_name]
+            if res == -1 and w > 1600:
+                w, h = 1600, round(h * 1600 / w)
+            if tuple(cd.image.shape) != (3, h, w):
+                raise AssertionError(f"jpeg scene -r {res}: {cd.image_name} "
+                                     f"{tuple(cd.image.shape)}")
+            if res == 1:
+                ref = decode_png(str(FIXTURES / refs[cd.image_name]))
+                got = np.rint(cd.image.numpy().transpose(1, 2, 0) * 255)
+                if not np.array_equal(got, ref):
+                    raise AssertionError(f"jpeg scene: {cd.image_name} "
+                                         "differs from the PIL decode")
+        out[f"r{res}"] = {"views": len(views),
+                          "load_image_ms_per_view": timer.stats()["mean_ms"],
+                          "scene_s": total_s}
+        del scene
+    report["jpeg_scene"] = out
+    print("eval jpeg scene " + json.dumps(out), flush=True)
+
+
+def lpips_weights(path: Path) -> None:
+    """A seeded random-weights npz at VGG16's full widths, in the layout of
+    scripts/convert_lpips_weights.py (He-scaled convolutions, so the
+    activations stay in range; non-negative heads)."""
+    import numpy as np
+
+    from gs2d_torch.eval.lpips import TAPS, VGG_PLAN
+    rng = np.random.default_rng(0)
+    out, cin = {}, 3
+    for i, (cout, _) in enumerate(VGG_PLAN):
+        out[f"conv{i}_w"] = (rng.standard_normal((cout, cin, 3, 3))
+                             * math.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        out[f"conv{i}_b"] = (0.01 * rng.standard_normal(cout)).astype(
+            np.float32)
+        cin = cout
+    for j, t in enumerate(TAPS):
+        out[f"lin{j}"] = rng.random(VGG_PLAN[t][0]).astype(np.float32)
+    np.savez(path, **out)
+
+
+def m360_on_jpegs(report, work: Path, npz: Path):
+    """The M360 harness (``gs2d_torch.cli.m360_eval.main``) on the JPEG
+    scene as an outdoor scene (images_4): train EVAL_ITERS iterations with
+    --eval, render the held-out view (the 1920 px one, at 1600x900),
+    score it with LPIPS. Counts from zero around it; the latest K1 and K2
+    calls held against their plain versions."""
+    import torch
+
+    import gs2d_torch.ops.rasterize.api as api
+    from gs2d_torch.cli import m360_eval
+    root = work / "m360"
+    jpeg_colmap_scene(root / "bicycle", "images_4")
+    os.environ["GS2D_LPIPS_WEIGHTS"] = str(npz)
+    zero_counts()
+    t0 = time.perf_counter()
+    with LastCall(api, "rasterize_fwd") as k1, \
+            LastCall(api, "rasterize_bwd") as k2:
+        m360_eval.main(["-m360", str(root), "-o", str(work / "m360_out"),
+                        "--scenes", "bicycle", "--iterations",
+                        str(EVAL_ITERS), "--test_iterations", "1",
+                        str(EVAL_ITERS), "--quiet", "--device",
+                        EVAL_DEVICE])
+        torch.cuda.synchronize()
+    harness_s = time.perf_counter() - t0
+    counts = read_counts()
+    report["fwd_err"] = hold_fwd(k1.args, 2, "eval M360 harness K1")
+    report["bwd_err"] = hold_bwd(k2.args, 2, "eval M360 harness K2")
+    del k1, k2
+    res = json.loads((work / "m360_out" / "bicycle" / "results.json")
+                     .read_text())[f"ours_{EVAL_ITERS}"]
+    if counts["rasterize_bwd"] != EVAL_ITERS or \
+            counts["rasterize_fwd"] < EVAL_ITERS + 1:
+        raise AssertionError(f"eval M360 harness launches {counts}")
+    if not (math.isfinite(res["PSNR"]) and res["PSNR"] > EVAL_PSNR_MIN
+            and res["LPIPS"] is not None and math.isfinite(res["LPIPS"])):
+        raise AssertionError(f"eval M360 harness results {res}")
+    report["counts"] = counts
+    report["m360"] = {"harness_s": harness_s, "results": res,
+                      "launches": counts}
+    print(f"eval M360 harness on the JPEG scene: {EVAL_ITERS} iterations, "
+          f"{harness_s:.1f} s; K1 max abs err {report['fwd_err']:.3g}, K2 "
+          f"{report['bwd_err'][0]:.3g} (normalised "
+          f"{report['bwd_err'][1]:.3g}); " + json.dumps(report["m360"]),
+          flush=True)
+
+
+def lpips_full_size(report, model: Path, npz: Path):
+    """``cli.metrics`` with LPIPS on the data path's model (its held-out
+    views at 1600x900): finite, one pair equal to the CPU LPIPS within
+    LPIPS_REL; the ms per view on the card, a mean of LPIPS_REPS."""
+    import torch
+
+    from gs2d_torch.cli import metrics as metrics_cli
+    from gs2d_torch.eval.lpips import LPIPS
+    from gs2d_torch.scene.images import decode_png
+    os.environ["GS2D_LPIPS_WEIGHTS"] = str(npz)
+    t0 = time.perf_counter()
+    metrics_cli.main(["-m", str(model), "--device", EVAL_DEVICE])
+    cli_s = time.perf_counter() - t0
+    method = f"ours_{DATA_ITERS}"
+    per_view = json.loads((model / "per_view.json").read_text())[method]
+    vals = per_view["LPIPS"]
+    if not vals or not all(v is not None and math.isfinite(v)
+                           for v in vals.values()):
+        raise AssertionError(f"eval LPIPS per view {vals}")
+    name = sorted(vals)[0]
+    mdir = model / "test" / method
+
+    def load(sub, dev):
+        a = decode_png(str(mdir / sub / name))[..., :3]
+        return torch.as_tensor(a.transpose(2, 0, 1).copy(),
+                               device=dev).float() / 255.0
+    r, g = load("renders", EVAL_DEVICE), load("gt", EVAL_DEVICE)
+    card = LPIPS(device=EVAL_DEVICE)
+    card(r, g)
+    ms = cuda_ms(lambda: card(r, g), LPIPS_REPS)
+    # a caller that turned TF32 back on: LPIPS still runs in FP32 and
+    # leaves the flag as it found it
+    package_flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on_card = float(card(r, g))
+        kept = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = package_flag
+    if kept is not True:
+        raise AssertionError("eval LPIPS changed the caller's TF32 flag")
+    t0 = time.perf_counter()
+    on_cpu = float(LPIPS(device="cpu")(load("renders", "cpu"),
+                                       load("gt", "cpu")))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    if not rel < LPIPS_REL or abs(vals[name] - on_card) > LPIPS_REL * \
+            abs(on_cpu):
+        raise AssertionError(f"eval LPIPS {name}: card {on_card}, CPU "
+                             f"{on_cpu} (rel {rel:.3g}), cli {vals[name]}")
+    report["lpips"] = {"views": len(vals), "size": list(r.shape[1:]),
+                       "ms_per_view": ms, "card": on_card, "cpu": on_cpu,
+                       "rel_err": rel, "cpu_s": cpu_s, "cli_s": cli_s,
+                       "tf32_flag_of_the_package": package_flag}
+    print("eval LPIPS " + json.dumps(report["lpips"]), flush=True)
+
+
+def surfel_samples(surf, n: int, seed: int = 0):
+    """``n`` points uniform over the area of the surfels' 1-sigma discs:
+    a surfel with probability proportional to s0·s1, then a uniform point
+    of its disc on its two tangent axes (wxyz quaternions)."""
+    import numpy as np
+    pts, scales, quats = surf[0], surf[1], surf[2]
+    rng = np.random.default_rng(seed)
+    area = scales[:, 0].astype(np.float64) * scales[:, 1]
+    idx = rng.choice(len(pts), n, p=area / area.sum())
+    w, x, y, z = (quats[idx, k].astype(np.float64) for k in range(4))
+    nrm = np.sqrt(w * w + x * x + y * y + z * z)
+    w, x, y, z = w / nrm, x / nrm, y / nrm, z / nrm
+    t0 = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y + w * z),
+                   2 * (x * z - w * y)], -1)
+    t1 = np.stack([2 * (x * y - w * z), 1 - 2 * (x * x + z * z),
+                   2 * (y * z + w * x)], -1)
+    rad = np.sqrt(rng.random(n))
+    ang = rng.random(n) * 2 * np.pi
+    u, v = rad * np.cos(ang), rad * np.sin(ang)
+    return (pts[idx] + t0 * (u * scales[idx, 0])[:, None]
+            + t1 * (v * scales[idx, 1])[:, None])
+
+
+def geometry_eval(report, mesh_path: str, surf, voxel: float, work: Path):
+    """The data path's bounded mesh against GT_SAMPLES area samples of the
+    true surfels: DTU's evaluate_scan_mesh (sampling, thinning at
+    GEO_VOXELS voxels, two-way distances clipped at 100 times that, DTU's
+    0.2 / 20 ratio; no ObsMask), and TnT's voxel downsample → ICP →
+    F-score at tau = the voxel (evaluate_histo: both clouds downsampled at
+    tau / 2). Gated; seconds printed. Also a 1600x1200 mask dilated by the
+    DTU cull's 49x49 ellipse on the card, equal to the same on the CPU."""
+    import numpy as np
+
+    from gs2d_torch.eval import dtu, tnt
+    from gs2d_torch.scene.ply import read_mesh_ply, write_point_cloud
+    verts, faces, _ = read_mesh_ply(mesh_path)
+    t0 = time.perf_counter()
+    gt = surfel_samples(surf, GT_SAMPLES)
+    gt_path = str(work / "surfel_samples.ply")
+    write_point_cloud(gt_path, gt, np.full_like(gt, 0.5))
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    density = GEO_VOXELS * voxel
+    d = dtu.evaluate_scan_mesh(verts, faces, gt_path, density=density,
+                               max_dist=100 * density)
+    dtu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = tnt.mesh_eval_points(verts, faces)
+    T = tnt.icp_similarity(tnt.voxel_downsample(rec, density),
+                           tnt.voxel_downsample(gt, density), density)
+    f = tnt.evaluate_histo(rec, gt, T, None, voxel / 2, voxel)
+    tnt_s = time.perf_counter() - t0
+    drift = float(np.abs(T - np.eye(4)).max())
+    rng = np.random.default_rng(3)
+    mask = np.zeros((1200, 1600), np.uint8)
+    mask[300:900, 400:1200] = rng.random((600, 800)) > 0.3
+    fp = dtu.ellipse_footprint(49, 49)
+    dtu.dilate(mask, fp, EVAL_DEVICE)
+    t0 = time.perf_counter()
+    on_card = dtu.dilate(mask, fp, EVAL_DEVICE)
+    dilate_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(on_card, dtu.dilate(mask, fp, "cpu")):
+        raise AssertionError("eval: the mask dilation on the card differs "
+                             "from the CPU's")
+    report["geometry"] = {
+        "mesh_verts": len(verts), "mesh_faces": len(faces),
+        "voxel": voxel, "density": density, "gt_samples": GT_SAMPLES,
+        "dtu": d, "dtu_s": dtu_s,
+        "tnt": {k: f[k] for k in ("precision", "recall", "fscore",
+                                  "n_source", "n_target")},
+        "tnt_icp_drift": drift, "tnt_s": tnt_s, "gt_prep_s": prep_s,
+        "dilate_1600x1200_r24_ms": dilate_ms}
+    print("eval geometry " + json.dumps(report["geometry"]), flush=True)
+    if not (math.isfinite(d["overall"]) and d["overall"] < DTU_OVERALL_MAX
+            and f["fscore"] > TNT_FSCORE_MIN
+            and drift < ICP_DRIFT_VOXELS * voxel):
+        raise AssertionError(f"eval geometry gates: DTU overall "
+                             f"{d['overall']:.4g} (< {DTU_OVERALL_MAX}), TnT "
+                             f"F {f['fscore']:.4g} (> {TNT_FSCORE_MIN}), ICP "
+                             f"drift {drift:.3g}")
+
+
+def eval_phase(report, dpath):
+    """Phase 13: the eval slice on the card — the JPEG fixtures, a scene
+    of JPEGs through ``Scene``, the M360 harness on it (K1 and K2 counted
+    and held), LPIPS at 1600x900 on the data path's model, and the DTU
+    and TnT geometry scores of the data path's bounded mesh. Deletes the
+    data path's work directory at the end."""
+    import shutil
+    work = dpath["work"]
+    jpeg_fixtures(report)
+    jpeg_scene_load(report, work)
+    npz = work / "lpips_random.npz"
+    lpips_weights(npz)
+    try:
+        m360_on_jpegs(report, work, npz)
+        lpips_full_size(report, dpath["model"], npz)
+    finally:
+        os.environ.pop("GS2D_LPIPS_WEIGHTS", None)
+    geometry_eval(report, dpath["mesh"], dpath["surf"], dpath["voxel"],
+                  work)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -2244,9 +2674,11 @@ def main() -> int:
 
     from gs2d_torch import cuda_build
     t0 = time.time()
-    built = cuda_build.build_all()
+    built = cuda_build.build_all(cuda_build.KERNELS + cuda_build.HOST_LIBS)
     print(f"build: {time.time() - t0:.1f} s ({len(built)} of "
-          f"{len(cuda_build.KERNELS)} kernels compiled now)", flush=True)
+          f"{len(cuda_build.KERNELS)} kernels and "
+          f"{len(cuda_build.HOST_LIBS)} host library compiled now)",
+          flush=True)
     ptxas = {name: ptxas_report(cuda_build.compiler_report(name))
              for name in cuda_build.KERNELS}
     for name, funcs in ptxas.items():
@@ -2292,9 +2724,14 @@ def main() -> int:
     bench_phase(bench, fwd, bwd)
     dpath = {}
     data_path(dpath)
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], dpath["fwd_err"])
-    bwd["max_abs_err"] = max(bwd["max_abs_err"], dpath["bwd_err"][0])
-    bwd["max_norm_err"] = max(bwd["max_norm_err"], dpath["bwd_err"][1])
+    ev = {}
+    eval_phase(ev, dpath)
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], dpath["fwd_err"],
+                             ev["fwd_err"])
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], dpath["bwd_err"][0],
+                             ev["bwd_err"][0])
+    bwd["max_norm_err"] = max(bwd["max_norm_err"], dpath["bwd_err"][1],
+                              ev["bwd_err"][1])
     # K1 runs on every path: once per view and once per step
     fwd["launches_by_path"]["train_step"] = bwd.pop("fwd_launches_train")
     fwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_fwd"]
@@ -2304,16 +2741,19 @@ def main() -> int:
         dpath["render_counts"]["rasterize_fwd"]
     fwd["launches_by_path"]["bench"] = \
         bench["kernel_launches"]["rasterize_fwd"]
+    fwd["launches_by_path"]["eval"] = ev["counts"]["rasterize_fwd"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     bwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_bwd"]
     bwd["launches_by_path"]["data_path_train"] = \
         dpath["train_counts"]["rasterize_bwd"]
     bwd["launches_by_path"]["bench"] = \
         bench["kernel_launches"]["rasterize_bwd"]
+    bwd["launches_by_path"]["eval"] = ev["counts"]["rasterize_bwd"]
     bwd["launches"] = sum(bwd["launches_by_path"].values())
     gat["launches_by_path"] = {
         "loop": loop["launches"]["gather_rows"],
-        "data_path_train": dpath["train_counts"]["gather_rows"]}
+        "data_path_train": dpath["train_counts"]["gather_rows"],
+        "eval": ev["counts"]["gather_rows"]}
     gat["launches"] = sum(gat["launches_by_path"].values())
     gat["densify"] = [{k: d[k] for k in ("iteration", "n_before", "n_after",
                                          "ms", "gather_ms",

@@ -21,7 +21,11 @@ checkpoints in the JAX package's schema (``models/io.py``) — and the data
 path: COLMAP and Blender scenes on disk (``scene/``, with the port's own
 PNG codec in ``scene/images.py``), TSDF meshing (``render/extract.py``,
 ``ops/tsdf.py``, ``ops/marching.py``) and the train, render and metrics
-CLIs (``cli/``). Entry points take a ``device`` argument that defaults to
+CLIs (``cli/``) — and the evaluation of the paper's benchmarks: JPEG
+scenes (``scene/jpeg.py``, its Huffman decoder the host library
+``csrc/jpeg_entropy.cpp``), LPIPS (``eval/lpips.py``), the DTU and Tanks
+and Temples protocols (``eval/``) and their harnesses
+(``cli/{m360,dtu,tnt}_eval.py``). Entry points take a ``device`` argument that defaults to
 ``"cuda"``; on a CPU tensor each kernel wrapper runs its plain PyTorch
 version instead.
 """

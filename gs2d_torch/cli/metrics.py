@@ -1,14 +1,16 @@
-"""NVS metrics CLI of the port: PSNR / SSIM over exported renders vs GT.
+"""NVS metrics CLI of the port: PSNR / SSIM / LPIPS over exported renders
+vs GT.
 
     python -m gs2d_torch.cli.metrics -m <model dir> [<model dir> ...]
 
 The surface of the JAX package's ``metrics.py`` (the reference's
 ``metrics.py:36-102``): reads ``<model>/test/<method>/{renders,gt}``
 through the port's PNG decoder and writes ``results.json`` and
-``per_view.json``. LPIPS is written as null, as the JAX CLI writes it
-without pretrained weights (the port has no LPIPS yet). A scene that
-fails is reported and skipped, so the other scenes still get their
-results.
+``per_view.json``. LPIPS (``eval/lpips.py``, on the CLI's device) is
+computed per view where the VGG/LPIPS weights npz named by
+``GS2D_LPIPS_WEIGHTS`` exists, and written as null otherwise, as the JAX
+``metrics.py:37-41``, ``:66-67`` do. A scene that fails is reported and
+skipped, so the other scenes still get their results.
 """
 
 from __future__ import annotations
@@ -41,9 +43,11 @@ def _mean(xs):
 def evaluate(model_paths, split="test", device="cuda"):
     import torch
 
+    from ..eval.lpips import LPIPS
     from ..ops.ssim import psnr as psnr_fn
     from ..ops.ssim import ssim as ssim_fn
 
+    lpips = LPIPS(device=device)
     for model_path in model_paths:
         # per-scene isolation like the reference metrics.py: a broken
         # method dir (empty renders/, stray file) must not abort the
@@ -69,7 +73,8 @@ def evaluate(model_paths, split="test", device="cuda"):
                     gt = torch.as_tensor(g, device=device)
                     ssims.append(float(ssim_fn(rt, gt)))
                     psnrs.append(float(psnr_fn(rt, gt)))
-                    lpipss.append(None)
+                    lpipss.append(float(lpips(rt, gt))
+                                  if lpips.available() else None)
                 print(f"  SSIM : {_mean(ssims):.7f}")
                 print(f"  PSNR : {_mean(psnrs):.7f}")
                 print(f"  LPIPS: {_mean(lpipss)}")

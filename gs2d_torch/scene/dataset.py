@@ -5,9 +5,10 @@ Counterpart of ``gs2d_tpu/scene/dataset.py`` (the reference's
 normalization (radius = 1.1 × max camera distance from the average
 center), every-8th-image test split for COLMAP eval (llffhold), random
 100k-point init in [-1.3, 1.3]³ for Blender scenes without a point cloud,
-RGBA alpha-composited onto the background. Images are decoded and resized
-by the port's own codec (``images.py``), bit for bit as PIL does it for
-the JAX package. One deviation: a gray+alpha PNG loads as its gray
+RGBA alpha-composited onto the background. Images (PNG, or JPEG as
+Mip-NeRF 360 and Tanks and Temples ship them) are decoded and resized by
+the port's own codecs (``images.py``, ``jpeg.py``), bit for bit as PIL
+does it for the JAX package. One deviation: a gray+alpha PNG loads as its gray
 channel repeated to RGB (the JAX loader passes its two channels on).
 """
 
@@ -25,7 +26,7 @@ from ..ops.transforms import focal2fov, fov2focal
 from .colmap import (detect_model_dir, qvec2rotmat, read_cameras_binary,
                      read_cameras_text, read_images_binary, read_images_text,
                      read_points3d_binary, read_points3d_text)
-from .images import decode_png, png_size, resize
+from .images import decode_image, image_size, resize
 from .ply import read_point_cloud, write_point_cloud
 
 
@@ -137,7 +138,7 @@ def _read_blender_cameras(path: str, transforms_file: str,
         w2c = np.linalg.inv(c2w)
         R = np.transpose(w2c[:3, :3])
         T = w2c[:3, 3]
-        width, height = png_size(fname)
+        width, height = image_size(fname)
         fovy = focal2fov(fov2focal(fovx, width), height)
         infos.append(CameraInfo(
             uid=idx, R=R, T=T, fovx=fovx, fovy=fovy,
@@ -204,15 +205,16 @@ def target_size(orig_w: int, orig_h: int, resolution_arg: int = -1,
 
 def load_image(info: CameraInfo, resolution_arg: int = -1,
                resolution_scale: float = 1.0,
-               white_background: bool = False):
+               white_background: bool = False, device="cuda"):
     """Resolution policy + RGBA handling → (image (3,H,W) f32, alpha
-    (1,H,W) f32 or None, (W, H)).
+    (1,H,W) f32 or None, (W, H)). A JPEG's pixel stages run on
+    ``device``; the rest on the host.
 
     Reference ordering preserved: RGBA frames are alpha-composited onto
     the background at FULL resolution and truncated to uint8 BEFORE the
     resize — resizing unassociated alpha first gives different silhouette
     pixels."""
-    arr_full = decode_png(info.image_path)
+    arr_full = decode_image(info.image_path, device)
     orig_h, orig_w = arr_full.shape[:2]
     w, h = target_size(orig_w, orig_h, resolution_arg, resolution_scale)
     if arr_full.ndim == 3 and arr_full.shape[-1] == 4:

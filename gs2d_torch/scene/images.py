@@ -1,16 +1,23 @@
-"""The port's PNG codec and the resize of the dataset resolution policy.
+"""The port's PNG codec, the image dispatch and the resize of the dataset
+resolution policy.
 
 The port does not depend on PIL (the H100 hosts it is written for do not
 install it), so it decodes and encodes its own images (the JAX package
 uses PIL: ``gs2d_tpu/scene/dataset.py:19``,
 ``gs2d_tpu/render/extract.py:350``).
 
-Decode: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced, all five
+``decode_image`` and ``image_size`` dispatch on the file's first bytes,
+not its extension (Mip-NeRF 360 names its JPEGs ``*.JPG``): PNG goes to
+the codec below, JPEG to ``jpeg.py`` (baseline and extended sequential,
+byte for byte what PIL gives), anything else raises a ``ValueError`` that
+names the file and the format.
+
+PNG decode: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced, all five
 scanline filters, giving the array ``np.asarray(PIL.Image.open(path))``
 gives, byte for byte. Every other PNG (palette, 16-bit, sub-byte depths,
-Adam7) and every other format (JPEG among them) raises a ``ValueError``
-that names the file and the format. Paeth and Average depend on the left
-neighbour, so a per-pixel loop would cost seconds per 1080p image. A pixel
+Adam7) raises a ``ValueError`` that names the file and the format. Paeth
+and Average depend on the left neighbour, so a per-pixel loop would cost
+seconds per 1080p image. A pixel
 depends only on (r, c-1), (r-1, c) and (r-1, c-1), so the pixels of one
 anti-diagonal r + c = d depend only on diagonals d-1 and d-2: the decoder
 stores the image skewed (diagonal-major), where each diagonal is one
@@ -79,6 +86,33 @@ def _header(data: bytes, path: str):
     if data[12:16] != b"IHDR":
         raise ValueError(f"{path}: PNG without an IHDR chunk first")
     return struct.unpack(">IIBBBBB", data[16:29])
+
+
+def _sniff(path: str) -> str:
+    with open(path, "rb") as f:
+        head = f.read(8)
+    fmt = _format_of(head)
+    if fmt not in ("PNG", "JPEG"):
+        raise ValueError(f"{path}: {fmt}; the port decodes PNG and JPEG")
+    return fmt
+
+
+def image_size(path: str):
+    """(width, height) of a PNG or JPEG, from its header."""
+    if _sniff(path) == "JPEG":
+        from .jpeg import jpeg_size
+        return jpeg_size(path)
+    return png_size(path)
+
+
+def decode_image(path: str, device="cuda") -> np.ndarray:
+    """PNG or JPEG file → the uint8 array PIL gives: (H, W) for gray, else
+    (H, W, C). A JPEG's pixel stages run on ``device``; a PNG decodes on
+    the host."""
+    if _sniff(path) == "JPEG":
+        from .jpeg import decode_jpeg
+        return decode_jpeg(path, device)
+    return decode_png(path)
 
 
 def png_size(path: str):

@@ -117,7 +117,8 @@ class Scene:
         out = []
         for info in infos:
             img, alpha, (w, h) = load_image(
-                info, args.resolution, scale, args.white_background)
+                info, args.resolution, scale, args.white_background,
+                device=self.device)
             cam = make_camera(info.R, info.T, info.fovx, info.fovy, w, h,
                               device=self.device)
             out.append(CameraData(

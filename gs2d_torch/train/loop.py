@@ -9,7 +9,7 @@ background), PLY saves, checkpoints and resume, EMA progress logging.
 
 Tensors resize under densification, so the JAX loop's capacity growth
 and pairs-capacity escalation and re-tightening have no counterpart; the
-multi-host path is not ported yet (ROADMAP queue 1 item 5).
+multi-host path is not ported yet (ROADMAP queue 1, `parallel/`).
 """
 
 from __future__ import annotations

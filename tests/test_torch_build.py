@@ -72,3 +72,33 @@ def test_compiler_report_is_kept_beside_the_library(src, tmp_path,
     text = "ptxas info    : Used 56 registers, used 1 barriers\n"
     lib.with_suffix(".txt").write_text(text)
     assert cuda_build.compiler_report("rasterize_fwd") == text
+
+
+def test_host_libraries_are_keyed_on_their_source_and_flags(src,
+                                                            monkeypatch):
+    """The JPEG entropy decoder (csrc/jpeg_entropy.cpp) is a host library:
+    not a kernel, keyed on its own source and the host flags, not on the
+    kernels' headers."""
+    assert "jpeg_entropy" not in cuda_build.KERNELS
+    assert cuda_build.HOST_LIBS == ("jpeg_entropy",)
+    before = cuda_build._lib_path("jpeg_entropy")
+    header = src / "raster_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert cuda_build._lib_path("jpeg_entropy") == before
+    cpp = src / "jpeg_entropy.cpp"
+    cpp.write_bytes(cpp.read_bytes() + b"\n")
+    edited = cuda_build._lib_path("jpeg_entropy")
+    assert edited != before
+    monkeypatch.setattr(cuda_build, "CXX_FLAGS",
+                        cuda_build.CXX_FLAGS + ("-g",))
+    assert cuda_build._lib_path("jpeg_entropy") != edited
+
+
+def test_failed_host_build_raises(src, tmp_path, monkeypatch):
+    """A source the compiler refuses raises with its output: nothing falls
+    back to the Python decoder."""
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    (src / "jpeg_entropy.cpp").write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="jpeg_entropy"):
+        cuda_build.build_all(("jpeg_entropy",))
+    assert not list((tmp_path / "build").glob("*.so"))

@@ -17,6 +17,12 @@ synthetic_scene.py.
 - Metrics CLI: ``results.json`` and ``per_view.json`` equal to the JAX
   ``metrics.py``'s on the same directories within 1e-5.
 
+- The eval harnesses (``m360_eval``, ``dtu_eval``, ``tnt_eval``) on a tiny
+  COLMAP scene of the torus, 10 iterations each: the M360 one on JPEGs
+  named .JPG with LPIPS from random weights, the DTU and TnT ones scoring
+  equal (1e-9 relative) to the JAX ``evaluate_scan`` and
+  ``run_tnt_evaluation`` on the same mesh and data.
+
 TensorBoard is blocked so the CLI takes its no-TensorBoard path (where
 TensorFlow is installed, importing it takes tens of seconds).
 """
@@ -25,6 +31,7 @@ import json
 import math
 import shutil
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -259,3 +266,177 @@ def test_metrics_cli_isolates_a_broken_scene(rendered, tmp_path, capsys):
     assert "Unable to compute metrics for" in capsys.readouterr().out
     assert not (broken / "results.json").exists()
     assert (good / "results.json").exists()
+
+
+# --- the benchmark harnesses (m360_eval, dtu_eval, tnt_eval) ----------------
+
+HARNESS_ITERS = ["--iterations", "10", "--quiet"]
+COARSE_MESH = ["--num_cluster", "1", "--voxel_size", "0.1", "--sdf_trunc",
+               "0.4", "--depth_trunc", "3.0"]
+
+
+@pytest.fixture(scope="module")
+def colmap_scene(tmp_path_factory):
+    """A tiny COLMAP scene of the torus (8 views at 48x40, PNGs) and its
+    surfels, for the harnesses."""
+    root = tmp_path_factory.mktemp("harnesses") / "scene"
+    surf = ss.torus_surfels(4000)
+    renderer = ss.SurfelRenderer(surf, device="cpu")
+    ss.write_colmap_scene(str(root), renderer, 48, 40, 8,
+                          seed_points=ss.seed_cloud(surf[0], surf[4], 300))
+    alphas = [renderer.rgba(c2w, 48, 40, math.radians(70.0))[..., 3]
+              for c2w in ss.orbit(8)]
+    return root, surf, alphas
+
+
+def _copy_scene(src, dst):
+    shutil.copytree(src, dst)
+    return dst
+
+
+def test_m360_harness_on_jpeg_scene(colmap_scene, tmp_path, monkeypatch):
+    """m360_eval: an outdoor scene whose images_4 are JPEGs named .JPG;
+    trained with --eval, rendered, scored with LPIPS from the weights npz
+    (random weights in the converter's layout)."""
+    from gs2d_torch.cli import m360_eval
+    from gs2d_torch.scene import colmap as tc
+    from .test_lpips import _random_state_dicts
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                           / "scripts"))
+    from convert_lpips_weights import convert_state_dicts
+    root, _, _ = colmap_scene
+    scene = _copy_scene(root, tmp_path / "m360" / "bicycle")
+    model = scene / "sparse" / "0" / "images.bin"
+    imgs = tc.read_images_binary(str(model))
+    (scene / "images_4").mkdir()
+    for k, im in imgs.items():
+        jpg = im.name.replace(".png", ".JPG")
+        Image.open(scene / "images" / im.name).save(
+            scene / "images_4" / jpg, format="JPEG", quality=95)
+        im.name = jpg
+    tc.write_images_binary(imgs, str(model))
+    npz = tmp_path / "lpips.npz"
+    np.savez(npz, **convert_state_dicts(*_random_state_dicts(seed=1)))
+    monkeypatch.setenv("GS2D_LPIPS_WEIGHTS", str(npz))
+    out = tmp_path / "out"
+    paths = m360_eval.main(["-m360", str(tmp_path / "m360"), "-o", str(out),
+                            "--scenes", "bicycle", "--device", "cpu"]
+                           + HARNESS_ITERS)
+    assert paths == [str(out / "bicycle")]
+    res = json.loads((out / "bicycle" / "results.json").read_text())
+    m = res["ours_10"]
+    assert math.isfinite(m["PSNR"]) and 0 < m["SSIM"] <= 1
+    assert m["LPIPS"] is not None and math.isfinite(m["LPIPS"])
+    renders = sorted((out / "bicycle" / "test" / "ours_10" / "renders")
+                     .iterdir())
+    assert len(renders) == 1                       # view 0 of 8 held out
+    assert not (out / "bicycle" / "train").exists()
+
+
+def _idr_cameras(scene, alphas, dst):
+    """cameras.npz (IDR world_mat = K[R|t], identity scale_mat) and RGB
+    masks of the views' alpha, from the scene's COLMAP model."""
+    from gs2d_torch.scene import colmap as tc
+    from gs2d_torch.scene.images import encode_png
+    cam = tc.read_cameras_binary(str(scene / "sparse" / "0"
+                                     / "cameras.bin"))[1]
+    fx, fy, cx, cy = cam.params
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    imgs = tc.read_images_binary(str(scene / "sparse" / "0" / "images.bin"))
+    cams = {}
+    (dst / "mask").mkdir()
+    for i, im in enumerate(sorted(imgs.values(), key=lambda x: x.name)):
+        P = np.eye(4)
+        P[:3, :4] = K @ np.hstack([tc.qvec2rotmat(im.qvec),
+                                   im.tvec[:, None]])
+        cams[f"world_mat_{i}"] = P
+        cams[f"scale_mat_{i}"] = np.eye(4)
+        m = np.where(alphas[i] > 8, 255, 0).astype(np.uint8)
+        encode_png(str(dst / "mask" / f"{i:03d}.png"),
+                   np.stack([m, m, m], -1))
+    np.savez(dst / "cameras.npz", **cams)
+
+
+def test_dtu_harness_scores_like_the_jax_protocol(colmap_scene, tmp_path,
+                                                 monkeypatch):
+    """dtu_eval: -r 2, λ_dist 1000, the mesh, the mask cull and the
+    chamfer against an ObsMask and GT points; the chamfer equals the JAX
+    evaluate_scan's on the same mesh and data within 1e-9 relative."""
+    import scipy.io as sio
+
+    from gs2d_torch.cli import dtu_eval
+    from gs2d_torch.scene.ply import write_point_cloud
+    from gs2d_tpu.eval.dtu import evaluate_scan
+    root, surf, alphas = colmap_scene
+    scan = _copy_scene(root, tmp_path / "dtu" / "scan24")
+    _idr_cameras(scan, alphas, scan)
+    official = tmp_path / "official"
+    (official / "Points" / "stl").mkdir(parents=True)
+    (official / "ObsMask").mkdir()
+    gt = official / "Points" / "stl" / "stl024_total.ply"
+    write_point_cloud(str(gt), surf[0].astype(np.float64),
+                      np.full((len(surf[0]), 3), 0.5))
+    bb = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]])
+    sio.savemat(official / "ObsMask" / "ObsMask24_10.mat",
+                {"ObsMask": np.ones((30, 30, 30), np.uint8), "BB": bb,
+                 "Res": 0.1, "P": np.array([[0.0], [0], [0], [1]])})
+    monkeypatch.setattr(dtu_eval, "MESH_FLAGS", COARSE_MESH)
+    out = tmp_path / "out"
+    res = dtu_eval.main(["--dtu", str(tmp_path / "dtu"), "--DTU",
+                         str(official), "-o", str(out), "--scans", "24",
+                         "--device", "cpu"] + HARNESS_ITERS)
+    cfg = json.loads((out / "scan24" / "cfg_args.json").read_text())
+    assert (cfg["model"]["resolution"], cfg["optimization"]["lambda_dist"],
+            cfg["pipeline"]["depth_ratio"]) == (2, 1000, 1.0)
+    saved = json.loads((out / "results.json").read_text())
+    r = saved["per_scan"]["24"]
+    assert r == res[24] and saved["mean"] == r["overall"]
+    assert all(math.isfinite(r[k]) for k in ("mean_d2s", "mean_s2d"))
+    mesh = out / "scan24" / "train" / "ours_10" / "fuse_post.ply"
+    ref = evaluate_scan(str(mesh), str(gt), str(official / "ObsMask"
+                                                / "ObsMask24_10.mat"),
+                        scan_dir=str(scan))
+    for k in ("mean_d2s", "mean_s2d", "overall"):
+        assert r[k] == pytest.approx(ref[k], rel=1e-9), k
+
+
+def test_tnt_harness_scores_like_the_jax_protocol(colmap_scene, tmp_path,
+                                                 monkeypatch):
+    """tnt_eval: -r 2, λ_dist 100 (Barn, a 360° scene), the mesh, the
+    trajectory log and the F-score at Barn's τ; the numbers equal the JAX
+    run_tnt_evaluation's on the same mesh and data within 1e-9."""
+    from gs2d_torch.cli import tnt_eval
+    from gs2d_torch.scene.ply import write_point_cloud
+    from gs2d_tpu.eval.tnt import run_tnt_evaluation
+    root, surf, _ = colmap_scene
+    scene = _copy_scene(root, tmp_path / "tnt" / "Barn")
+    gt_dir = tmp_path / "gt" / "Barn"
+    gt_dir.mkdir(parents=True)
+    write_point_cloud(str(gt_dir / "Barn.ply"), surf[0].astype(np.float64),
+                      np.full((len(surf[0]), 3), 0.5))
+    np.savetxt(gt_dir / "Barn_trans.txt", np.eye(4))
+    tnt_eval.export_trajectory(str(scene), str(gt_dir
+                                               / "Barn_COLMAP_SfM.log"))
+    (gt_dir / "Barn.json").write_text(json.dumps({
+        "orthogonal_axis": "Z", "axis_min": -2.0, "axis_max": 2.0,
+        "bounding_polygon": [[-2, -2, 0], [2, -2, 0], [2, 2, 0],
+                             [-2, 2, 0]]}))
+    monkeypatch.setattr(tnt_eval, "MESH_360", COARSE_MESH)
+    out = tmp_path / "out"
+    res = tnt_eval.main(["--TNT_data", str(tmp_path / "tnt"), "--TNT_GT",
+                         str(tmp_path / "gt"), "-o", str(out), "--scenes",
+                         "Barn", "--device", "cpu"] + HARNESS_ITERS)
+    cfg = json.loads((out / "Barn" / "cfg_args.json").read_text())
+    assert (cfg["model"]["resolution"],
+            cfg["optimization"]["lambda_dist"]) == (2, 100)
+    r = res["Barn"]
+    assert json.loads((out / "results.json").read_text())["per_scene"][
+        "Barn"]["fscore"] == r["fscore"]
+    assert 0 <= r["fscore"] <= 1 and r["threshold"] == 0.01
+    assert (out / "Barn" / "tnt_eval" / "Barn.recall.txt").exists()
+    mesh = out / "Barn" / "train" / "ours_10" / "fuse_post.ply"
+    ref = run_tnt_evaluation(str(mesh), str(gt_dir),
+                             str(out / "Barn" / "Barn_traj.log"),
+                             str(tmp_path / "jax_eval"), scene="Barn")
+    for k in ("precision", "recall", "fscore"):
+        assert r[k] == pytest.approx(ref[k], rel=1e-9, abs=1e-12), k

@@ -451,3 +451,64 @@ def test_tsdf_and_marching_match_the_cpu(cuda):
     assert dist.max() < 1e-5 and len(np.unique(to_card)) == len(v0)
     assert {tuple(f) for f in np.sort(to_card[f0], 1).tolist()} == \
         {tuple(f) for f in np.sort(f1, 1).tolist()}
+
+
+def test_jpeg_pixel_stages_on_the_card_match_the_cpu(cuda):
+    """Every committed JPEG fixture: the pixel stages on the card give the
+    bytes they give on the CPU (integer arithmetic), and the PIL decode."""
+    import json
+    from pathlib import Path
+
+    from gs2d_torch.scene import images, jpeg
+    root = Path(__file__).resolve().parent / "fixtures" / "jpeg"
+    for name, e in json.loads((root / "index.json").read_text()).items():
+        if "decoded" not in e:
+            continue
+        c = jpeg.read_coefficients(str(root / name))
+        on_card = jpeg.pixels(c, cuda)
+        assert on_card.device.type == "cuda"
+        ref = images.decode_png(str(root / e["decoded"]))
+        np.testing.assert_array_equal(on_card.cpu().numpy(), ref)
+        np.testing.assert_array_equal(jpeg.pixels(c, "cpu").numpy(), ref)
+
+
+def test_mask_dilation_on_the_card_matches_the_cpu(cuda):
+    from gs2d_torch.eval import dtu
+    rng = np.random.default_rng(0)
+    mask = (rng.random((300, 400)) > 0.995).astype(np.uint8)
+    for r in (1, 7, 24):
+        fp = dtu.ellipse_footprint(2 * r + 1, 2 * r + 1)
+        np.testing.assert_array_equal(dtu.dilate(mask, fp, cuda),
+                                      dtu.dilate(mask, fp, "cpu"))
+
+
+def test_lpips_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Random weights at 1/8 of VGG16's widths: the card's LPIPS within
+    rel 1e-4 of the CPU's, with TF32 turned on by the caller."""
+    from gs2d_torch.eval.lpips import LPIPS, TAPS, VGG_PLAN
+    rng = np.random.default_rng(1)
+    w, cin = {}, 3
+    for i, (cout, _) in enumerate(VGG_PLAN):
+        cout //= 8
+        w[f"conv{i}_w"] = (rng.standard_normal((cout, cin, 3, 3))
+                           * math.sqrt(2 / (9 * cin))).astype(np.float32)
+        w[f"conv{i}_b"] = np.zeros(cout, np.float32)
+        cin = cout
+    for j, t in enumerate(TAPS):
+        w[f"lin{j}"] = rng.random(VGG_PLAN[t][0] // 8).astype(np.float32)
+    np.savez(tmp_path / "w.npz", **w)
+    x = rng.random((3, 90, 160)).astype(np.float32)
+    y = np.clip(x + 0.1 * rng.standard_normal(x.shape), 0, 1).astype(
+        np.float32)
+    ref = float(LPIPS(str(tmp_path / "w.npz"), device="cpu")(
+        torch.from_numpy(x), torch.from_numpy(y)))
+    card = LPIPS(str(tmp_path / "w.npz"), device=cuda)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = float(card(torch.from_numpy(x).to(cuda),
+                         torch.from_numpy(y).to(cuda)))
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert got == pytest.approx(ref, rel=1e-4)

@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "gs2d_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -53,9 +55,41 @@ def test_renderer_imports_with_jax_blocked():
                "import gs2d_torch.cli.train, gs2d_torch.cli.render\n"
                "import gs2d_torch.cli.metrics, gs2d_torch.cli.bench\n"
                "import gs2d_torch.utils.bench_scenes\n"
+               "import gs2d_torch.scene.jpeg, gs2d_torch.eval.lpips\n"
+               "import gs2d_torch.eval.geometry, gs2d_torch.eval.dtu\n"
+               "import gs2d_torch.eval.tnt, gs2d_torch.cli.m360_eval\n"
+               "import gs2d_torch.cli.dtu_eval, gs2d_torch.cli.tnt_eval\n"
                "print(sorted(m for m in sys.modules "
                "if m.startswith(('jax', 'gs2d_tpu'))))\n")
     assert out.strip() == "['gs2d_tpu', 'jax']"   # only the blocked stubs
+
+
+def test_eval_slice_runs_without_pil_cv2_and_matplotlib(tmp_path):
+    """The card's machine has none of PIL, OpenCV and matplotlib: with all
+    three blocked, a JPEG decodes (C entropy decoder, pixel stages on the
+    CPU), the DTU dilation and mask read and the TnT crop run, and the
+    plot step says it was not drawn."""
+    from PIL import Image
+    jpg, png = tmp_path / "a.JPG", tmp_path / "m.png"
+    Image.fromarray(np.full((9, 11, 3), 200, np.uint8)).save(jpg)
+    Image.fromarray(np.full((9, 11, 3), 255, np.uint8)).save(png)
+    out = _run("import sys\n"
+               "for m in ('PIL', 'cv2', 'matplotlib', 'jax', 'gs2d_tpu'):\n"
+               "    sys.modules[m] = None\n"
+               "import numpy as np\n"
+               "from gs2d_torch.scene.images import decode_image\n"
+               "from gs2d_torch.eval import dtu, tnt\n"
+               f"img = decode_image({str(jpg)!r}, 'cpu')\n"
+               f"m = dtu.read_mask_gray({str(png)!r})\n"
+               "d = dtu.dilate(m > 0, dtu.ellipse_footprint(5, 5), 'cpu')\n"
+               "inside = tnt.points_in_polygon(np.zeros((1, 2)), np.array("
+               "[[-1.0, -1], [1, -1], [0, 1]]))\n"
+               "tnt._plot_graph('s', 0.5, 0.1, None, None, None, None, 5, "
+               "'.')\n"
+               "print(img.shape, m.shape, bool(d.all()), bool(inside[0]))\n")
+    lines = out.strip().split("\n")
+    assert "plot was not drawn" in lines[0]
+    assert lines[1] == "(9, 11, 3) (9, 11) True True"
 
 
 def test_render_without_a_card_raises():

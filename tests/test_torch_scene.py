@@ -112,9 +112,10 @@ def test_colmap_text_and_rotations(tmp_path):
     np.testing.assert_array_equal(tc.rotmat2qvec(R), jc.rotmat2qvec(R))
 
 
-def _colmap_scene(root, n=9, size=(1700, 96)):
-    """Seeded RGB PNGs (wider than 1600 px: the default policy resizes)
-    and a binary model: PINHOLE, poses on a ring, 40 points."""
+def _colmap_scene(root, n=9, size=(1700, 96), ext=".png"):
+    """Seeded RGB PNGs, or JPEGs for ``ext=".JPG"`` (wider than 1600 px:
+    the default policy resizes) and a binary model: PINHOLE, poses on a
+    ring, 40 points."""
     rng = np.random.default_rng(1)
     (root / "images").mkdir(parents=True)
     model = root / "sparse" / "0"
@@ -131,12 +132,14 @@ def _colmap_scene(root, n=9, size=(1700, 96)):
         c2w[:3, :3] = jc.qvec2rotmat(np.array([math.cos(th / 2), 0,
                                                math.sin(th / 2), 0]))
         w2c = np.linalg.inv(c2w)
-        name = f"v{(i * 5) % n:02d}.png"           # ids and names disagree
+        name = f"v{(i * 5) % n:02d}{ext}"          # ids and names disagree
         imgs[i + 1] = jc.ColmapImage(i + 1, jc.rotmat2qvec(w2c[:3, :3]),
                                      w2c[:3, 3], 1, name, np.zeros((0, 2)),
                                      np.zeros(0, np.int64))
         Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)) \
-            .save(root / "images" / name)
+            .save(root / "images" / name,
+                  **({"format": "JPEG", "quality": 90} if ext == ".JPG"
+                     else {}))
     jc.write_images_binary(imgs, str(model / "images.bin"))
     jc.write_points3d_binary(rng.normal(size=(40, 3)),
                              rng.integers(0, 256, (40, 3)).astype(np.uint8),
@@ -198,13 +201,16 @@ def _assert_scenes_equal(js, ts):
     assert tg.active_sh_degree == int(jg.active_sh_degree)
 
 
-@pytest.mark.parametrize("kind", ["colmap_eval", "blender_white",
-                                  "blender_black", "blender_black_r2"])
+@pytest.mark.parametrize("kind", ["colmap_eval", "colmap_jpeg",
+                                  "blender_white", "blender_black",
+                                  "blender_black_r2"])
 def test_scene_matches_jax(tmp_path, kind):
     # one copy of the dataset each: the loaders write side files into it
     data = tmp_path / "data_j"
     if kind == "colmap_eval":
         _colmap_scene(data)
+    elif kind == "colmap_jpeg":
+        _colmap_scene(data, ext=".JPG")
     else:
         _blender_scene(data)
     shutil.copytree(data, tmp_path / "data_t")
@@ -218,7 +224,7 @@ def test_scene_matches_jax(tmp_path, kind):
                              model_path=str(tmp_path / "t"), **kw), seed=3,
                 device="cpu")
     _assert_scenes_equal(js, ts)
-    if kind == "colmap_eval":
+    if kind.startswith("colmap"):
         assert len(ts.get_test_cameras()) == 2     # llffhold 8 of 9
         assert ts.get_train_cameras()[0].image.shape == (3, 90, 1600)
         ply = os.path.join("sparse", "0", "points3D.ply")
@@ -263,3 +269,25 @@ def test_blender_random_init_and_side_files(tmp_path):
         np.testing.assert_array_equal(x, y)
     assert a.nerf_normalization["radius"] == b.nerf_normalization["radius"]
     assert len(a.point_cloud[0]) == 100_000
+
+
+@pytest.mark.parametrize("resolution", [1, 2, -1])
+def test_load_image_jpeg_matches_jax(resolution):
+    """The 1920x1080 4:2:0 fixture at -r 1, -r 2 and the default policy
+    (brought to 1600 px wide): the port's decode → resize → float equals
+    the JAX loader's PIL path bit for bit."""
+    from gs2d_torch.scene.dataset import CameraInfo as TInfo
+    from gs2d_torch.scene.dataset import load_image as t_load
+    from gs2d_tpu.scene.dataset import CameraInfo as JInfo
+    from gs2d_tpu.scene.dataset import load_image as j_load
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "jpeg",
+                        "view_1080p_420_q95.jpg")
+    kw = dict(uid=0, R=np.eye(3), T=np.zeros(3), fovx=1.0, fovy=0.6,
+              image_path=path, image_name="v", width=1920, height=1080)
+    ji, ja, jwh = j_load(JInfo(**kw), resolution)
+    ti, ta, twh = t_load(TInfo(**kw), resolution, device="cpu")
+    assert twh == jwh == {1: (1920, 1080), 2: (960, 540),
+                          -1: (1600, 900)}[resolution]
+    assert ja is None and ta is None
+    assert ti.dtype == ji.dtype == np.float32
+    np.testing.assert_array_equal(ti, ji)
