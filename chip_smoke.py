@@ -7,9 +7,11 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
 (``gs2d_torch.train.step.make_train_step``), the training loop
 (``gs2d_torch.train.loop.train``), the benchmark entry point
 (``python -m gs2d_torch.cli.bench``), the data path (the train, render
-and metrics CLIs on a dataset on disk) and the eval slice (JPEG scenes,
-LPIPS, the DTU and TnT scores, the M360 harness) on the card, all with the
-binning's interval cull on, the default:
+and metrics CLIs on a dataset on disk), the eval slice (JPEG scenes,
+LPIPS, the DTU and TnT scores, the M360 harness) and the IG2G editing path
+(``python -m gs2d_torch.cli.train_ig2g`` with the SD-1.5 InstructPix2Pix
+at full width, seeded random weights) on the card, all with the binning's
+interval cull on, the default:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel, compiled together, with the build seconds and
@@ -116,12 +118,32 @@ binning's interval cull on, the default:
    the DTU chamfer and the TnT F-score of the bounded mesh against area
    samples of the true surfels, gated, with their seconds; a 1600x1200
    mask dilated on the card as on the CPU;
-14. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+14. the IG2G editing path: the TINY UNet (plain, FreeU, intermediate,
+   fused; at 16x12 and at 16x9, a side the JAX UNet cannot take), VAE and
+   CLIP text tower on the card against the CPU within rtol 1e-4 / atol
+   1e-5; a seeded SD-1.5 InstructPix2Pix snapshot at full width (UNet,
+   VAE, text encoder; F16 through the port's safetensors writer; a
+   synthetic tokenizer) written under build/chip_smoke/, loaded through
+   ``sd_weights`` (the three parameter counts gated), one full-width UNet
+   call against the CPU within FULL_REL of its largest output, and the
+   card's UNet, VAE and prompt times at a 960x540 view's shapes beside
+   their FLOP counts; then ``gs2d_torch.cli.train_ig2g.main`` with
+   ``--editor torch`` on the data path's dataset at -r 2 (960x540),
+   IG2G_ITERS iterations, edits at IG2G_EDITS (encoded-normalized
+   rendered noise, the intermediate fused-skip mode, FreeU, the edits
+   saved as PNGs). Gates: the edits' iterations; each edit 536 rows from
+   the VAE, 3x540x960 after the resize back, finite, in [0, 1], not the
+   render; rend_noise spanning [0, 1]; K1 once per step and per edit
+   render, K2 once per step; the latest edit-render K1 call (non-zero
+   noise channels) and the latest K2 call held against their plain
+   versions; finite losses; the PLY at the last iteration loaded. Prints
+   s per edit, ms per step, the CLI's s and peak GiB;
+15. one ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths, error, time, plain-version time, library-call time where there
    is one, ptxas's report and the bound computed from this run's inputs
    (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32; K1's and K2's operations
    on their composited pairs, the pair counts under ``bound_detail``);
-15. the card line, then ``{"ok": true, "device": {...}}`` as the last
+16. the card line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Any failure exits non-zero before the last line is printed; so does a
@@ -133,6 +155,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -506,17 +529,17 @@ def profile_call(fn, top=6):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name = {}      # summed by the first 70 characters of the name
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
+            by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) \
                 + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy_ms if by_name else None,
             "device_idle_share": 1 - busy_ms / wall_ms if by_name else None,
-            "top_device_ms": {k[:70]: v for k, v in top}}
+            "top_device_ms": dict(top)}
 
 
 def bench_state():
@@ -1290,7 +1313,7 @@ def bench_phase(report, fwd, bwd):
         raise AssertionError(f"bench measurements: {held}")
     errs = {}
     for seed, (label, (_, a1, a2)) in enumerate(zip(labels, held)):
-        e1 = hold_fwd(a1, seed, f"bench {label} K1")
+        e1, _ = hold_fwd(a1, seed, f"bench {label} K1")
         e2 = hold_bwd(a2, seed, f"bench {label} K2")
         errs[label] = {"slots": int(a1[1].numel()), "k1_max_abs_err": e1,
                        "k2_max_abs_err": e2[0], "k2_max_norm_err": e2[1]}
@@ -1825,19 +1848,22 @@ class CallTimer:
     def __init__(self, module, name):
         self.module, self.name, self.ms = module, name, []
 
-    def __enter__(self):
+    def timed(self, fn):
         import torch
-        self.real = getattr(self.module, self.name)
 
         def timed(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = self.real(*args, **kw)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t0) * 1e3)
             self.last_args = args
             return out
-        setattr(self.module, self.name, timed)
+        return timed
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.timed(self.real))
         return self
 
     def __exit__(self, *exc):
@@ -1872,6 +1898,42 @@ class LastCall:
         setattr(self.module, self.name, self.real)
 
 
+class StepTimer(CallTimer):
+    """Times every training step that ``module.make_train_step`` (looked
+    up at call time) makes, as CallTimer times a call."""
+
+    def __init__(self, module):
+        super().__init__(module, "make_train_step")
+
+    def __enter__(self):
+        self.real = self.module.make_train_step
+        self.module.make_train_step = lambda *a, **kw: self.timed(
+            self.real(*a, **kw))
+        return self
+
+
+class EveryCall:
+    """Replaces ``module.name`` (looked up at call time) with a wrapper
+    that keeps the arguments and the result of every call, adding no
+    synchronize; restores it on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def kept(*args):
+            out = self.real(*args)
+            self.calls.append((args, out))
+            return out
+        setattr(self.module, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
 def sampled_tiles(tile_count, seed) -> list:
     """The busiest tile, then SAMPLED_TILES seeded ones."""
     import numpy as np
@@ -1879,9 +1941,10 @@ def sampled_tiles(tile_count, seed) -> list:
         tile_count.shape[0], SAMPLED_TILES, replace=False).tolist()
 
 
-def hold_fwd(args, seed, what) -> float:
+def hold_fwd(args, seed, what):
     """K1 launched again on the arguments of a call of a main path, held
-    against its plain version on sampled tiles → max abs error."""
+    against its plain version on sampled tiles → (max abs error, K1's
+    (T, NUM_OUT, 512) output)."""
     import torch
 
     from gs2d_torch.ops.rasterize import kernel_fwd
@@ -1890,7 +1953,7 @@ def hold_fwd(args, seed, what) -> float:
         tiles = sampled_tiles(args[3], seed)
         ref = kernel_fwd.rasterize_fwd_reference(*args, tiles=tiles)
         idx = torch.as_tensor(tiles, device=out.device)
-        return compare_tiles((out[idx], med[idx], nc[idx]), ref, what)
+        return compare_tiles((out[idx], med[idx], nc[idx]), ref, what), out
 
 
 def hold_bwd(args, seed, what):
@@ -2016,7 +2079,7 @@ def data_path(report):
     plain gather). ``report`` gets the counts, K1's and K2's errors, and
     what the eval phase scores: the model directory, the bounded mesh
     (post-processed), the true surfels and the mesh's voxel; the dataset
-    stays on disk until that phase deletes it."""
+    stays on disk for that phase and the IG2G phase."""
     import json as _json
     import shutil
 
@@ -2083,7 +2146,7 @@ def data_path(report):
     # the kernels at this path's shapes (1600x900, the densified N): the
     # latest K1 and K2 calls of the train CLI against their plain versions;
     # every densify was replayed through the plain gather by the probe
-    report["fwd_err"] = hold_fwd(k1.args, 0, "data path train K1")
+    report["fwd_err"], _ = hold_fwd(k1.args, 0, "data path train K1")
     report["bwd_err"] = hold_bwd(k2.args, 0, "data path train K2")
     del k1, k2
     if [d["iteration"] for d in probe.densify] != list(
@@ -2144,7 +2207,7 @@ def data_path(report):
         rres = render_cli.main(["-m", str(model)])
     bounded_s = time.perf_counter() - t0
     render_counts = read_counts()
-    err = hold_fwd(k1.args, 1, "data path render K1")
+    err, _ = hold_fwd(k1.args, 1, "data path render K1")
     report["fwd_err"] = max(report["fwd_err"], err)
     del k1
     print(f"data path K1 at the render CLI's shapes: max abs err {err:.3g}",
@@ -2239,7 +2302,7 @@ def data_path(report):
                              f"report {p_end:.3f} dB")
     print(f"data path metrics ({metrics_s:.1f} s): " + json.dumps(m),
           flush=True)
-    # the eval phase scores this model and mesh, then deletes ``work``
+    # the eval phase scores this model and mesh; main deletes ``work``
     report.update(train_counts=train_counts, render_counts=render_counts,
                   work=work, model=model, surf=surf,
                   mesh=rres["mesh"].replace(".ply", "_post.ply"))
@@ -2475,7 +2538,7 @@ def m360_on_jpegs(report, work: Path, npz: Path):
         torch.cuda.synchronize()
     harness_s = time.perf_counter() - t0
     counts = read_counts()
-    report["fwd_err"] = hold_fwd(k1.args, 2, "eval M360 harness K1")
+    report["fwd_err"], _ = hold_fwd(k1.args, 2, "eval M360 harness K1")
     report["bwd_err"] = hold_bwd(k2.args, 2, "eval M360 harness K2")
     del k1, k2
     res = json.loads((work / "m360_out" / "bicycle" / "results.json")
@@ -2639,9 +2702,7 @@ def eval_phase(report, dpath):
     """Phase 13: the eval slice on the card — the JPEG fixtures, a scene
     of JPEGs through ``Scene``, the M360 harness on it (K1 and K2 counted
     and held), LPIPS at 1600x900 on the data path's model, and the DTU
-    and TnT geometry scores of the data path's bounded mesh. Deletes the
-    data path's work directory at the end."""
-    import shutil
+    and TnT geometry scores of the data path's bounded mesh."""
     work = dpath["work"]
     jpeg_fixtures(report)
     jpeg_scene_load(report, work)
@@ -2654,7 +2715,398 @@ def eval_phase(report, dpath):
         os.environ.pop("GS2D_LPIPS_WEIGHTS", None)
     geometry_eval(report, dpath["mesh"], dpath["surf"], dpath["voxel"],
                   work)
-    shutil.rmtree(work, ignore_errors=True)
+
+
+# --- phase 14: the IG2G editing path ----------------------------------------
+IG2G_ITERS = 60
+IG2G_EDITS = [21, 31, 41, 51]      # start 20, every 560 / 56 cameras
+IG2G_PROMPT = "turn the scene into a snowy winter evening"
+IG2G_REPS = 3
+SD_SEED = 0
+# the TINY configs on the card against the CPU: the CPU tests' bar against
+# JAX (tests/test_torch_ig2g_nets.py); the full-width UNet (16x16 latent,
+# batch 3): every output within this share of the CPU's largest magnitude.
+# FP32 on the card reads 6.8e-6 of it (H100 80GB HBM3, 700 W); the same
+# call with TF32 on is the control and must land past the bar
+TINY_RTOL, TINY_ATOL = 1e-4, 1e-5
+FULL_REL = 5e-5
+SD15_COUNTS = {"unet": 859_532_484, "vae": 83_653_863,
+               "text_encoder": 123_060_480}   # tests/test_sdnet.py:222-237
+
+
+class EditRenders:
+    """Keeps the image and ``rend_noise`` of every edit render of the IG2G
+    CLI (``cli.train_ig2g.render``, which the training step does not call)
+    and the arguments of the latest K1 launch inside one, so K1 with a
+    non-zero noise channel can be held."""
+
+    def __init__(self, cli, api):
+        self.cli, self.api, self.args, self.inside = cli, api, None, False
+        self.outs = []
+
+    def __enter__(self):
+        self.render, self.k1 = self.cli.render, self.api.rasterize_fwd
+
+        def render(*a, **kw):
+            self.inside = True
+            try:
+                pkg = self.render(*a, **kw)
+            finally:
+                self.inside = False
+            self.outs.append((pkg["render"].clamp(0, 1), pkg["rend_noise"]))
+            return pkg
+
+        def k1(*a):
+            if self.inside:
+                self.args = a
+            return self.k1(*a)
+        self.cli.render, self.api.rasterize_fwd = render, k1
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.render, self.api.rasterize_fwd = self.render, self.k1
+
+
+def held_close(got, ref, what, rtol=TINY_RTOL, atol=TINY_ATOL) -> float:
+    """max |got - ref| after checking it is within rtol/atol."""
+    import torch
+    got, ref = got.detach().cpu(), ref.detach().cpu()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}, or not finite")
+    err = float((got - ref).abs().max())
+    if not bool(((got - ref).abs() <= atol + rtol * ref.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {err:.3g} past rtol "
+                             f"{rtol} / atol {atol}")
+    return err
+
+
+def sd_tiny_card_vs_cpu() -> dict:
+    """TINY_UNET (plain, FreeU, intermediate, fused at 0.3, at a 16x12
+    latent and at 16x9, which the JAX UNet cannot take), TINY_VAE (encode
+    moments, decode) and TINY_CLIP on the card against the same seeded
+    params on the CPU, with FP32 convolutions."""
+    import torch
+
+    from gs2d_torch.eval.lpips import fp32_convolutions
+    from gs2d_torch.ig2g import clip_text, sdnet, vae
+    from gs2d_torch.ig2g.sd_weights import carry_params
+    g = torch.Generator().manual_seed(SD_SEED)
+    errs = {}
+
+    def pair(build, spec, cfg):
+        p = sdnet.init_params(spec(cfg), g, device="cpu")
+        return [carry_params(build(cfg, device="meta"), p, "tiny", dev)
+                for dev in ("cpu", "cuda")]
+
+    def both(fn, *xs):
+        return [fn(m, *[x.to(dev) if torch.is_tensor(x) else x for x in xs])
+                for m, dev in zip(mods, ("cpu", "cuda"))]
+
+    with torch.no_grad(), fp32_convolutions():
+        mods = pair(sdnet.UNet2DCondition, sdnet.unet_param_shapes,
+                    sdnet.TINY_UNET)
+        fr = sdnet.FreeUParams()
+        for h, w in ((16, 12), (16, 9)):
+            x = torch.randn((3, 8, h, w), generator=g)
+            ctx = torch.randn((3, 5, 16), generator=g)
+            cpu, card = both(lambda m, a, c: m(a, 300, c), x, ctx)
+            errs[f"unet_{h}x{w}"] = held_close(card, cpu, f"tiny unet {h}x{w}")
+            cpu, card = both(lambda m, a, c: m(a, 300, c, freeu=fr), x, ctx)
+            errs[f"unet_freeu_{h}x{w}"] = held_close(card, cpu, "tiny freeu")
+            cpu, card = both(lambda m, a, c: m.intermediate(a, 300, c),
+                             x, ctx)
+            errs[f"intermediate_{h}x{w}"] = max(
+                held_close(b, a, "tiny intermediate")
+                for a, b in zip(cpu, card))
+            cpu, card = both(
+                lambda m, a, c: m.fused(a, m.intermediate(a + 0.5, 300, c),
+                                        0.3, 300, c, freeu=fr), x, ctx)
+            errs[f"fused_{h}x{w}"] = held_close(card, cpu, "tiny fused")
+        mods = pair(vae.AutoencoderKL, vae.vae_param_shapes, vae.TINY_VAE)
+        img = torch.rand((1, 3, 45, 27), generator=g) * 2 - 1
+        cpu, card = both(vae.vae_encode_moments, img)
+        errs["vae_encode"] = max(held_close(b, a, "tiny vae encode")
+                                 for a, b in zip(cpu, card))
+        lat = torch.randn((1, 4, 6, 4), generator=g)
+        cpu, card = both(vae.vae_decode, lat)
+        errs["vae_decode"] = held_close(card, cpu, "tiny vae decode")
+        mods = pair(clip_text.CLIPTextModel, clip_text.clip_param_shapes,
+                    clip_text.TINY_CLIP)
+        ids = torch.randint(0, 64, (3, 8), generator=g)
+        cpu, card = both(clip_text.clip_text_apply, ids)
+        errs["clip"] = held_close(card, cpu, "tiny clip")
+    return errs
+
+
+def write_sd_snapshot(root: Path) -> dict:
+    """A seeded SD-1.5 InstructPix2Pix snapshot at full width in diffusers'
+    layout, F16 through the port's safetensors writer, at init_params'
+    fan-in scaling (drawn on the card), and a synthetic tokenizer/ (256
+    byte symbols, their </w> forms, the merges of the prompt's words, the
+    two specials). Returns seconds and bytes per file."""
+    import shutil
+
+    import torch
+
+    from gs2d_torch.ig2g import clip_text, sdnet, vae
+    from gs2d_torch.ig2g.tokenizer import write_synthetic_tokenizer
+    from gs2d_torch.utils import safetensors
+    shutil.rmtree(root, ignore_errors=True)
+    g = torch.Generator(device="cuda").manual_seed(SD_SEED)
+    out = {}
+    for sub, fname, spec in (
+            ("unet", "diffusion_pytorch_model.safetensors",
+             sdnet.unet_param_shapes(sdnet.SD15_IP2P_UNET)),
+            ("vae", "diffusion_pytorch_model.safetensors",
+             vae.vae_param_shapes(vae.SD15_VAE)),
+            ("text_encoder", "model.safetensors",
+             clip_text.clip_param_shapes(clip_text.SD15_CLIP))):
+        t0 = time.perf_counter()
+        p = sdnet.init_params(spec, g, device="cuda", dtype=torch.float16)
+        (root / sub).mkdir(parents=True)
+        path = root / sub / fname
+        safetensors.save_file(p, str(path), metadata={"format": "pt"})
+        del p
+        out[sub] = {"write_s": time.perf_counter() - t0,
+                    "bytes": path.stat().st_size}
+    write_synthetic_tokenizer(str(root / "tokenizer"),
+                              IG2G_PROMPT.split())
+    torch.cuda.empty_cache()
+    return out
+
+
+def sd_full_width(report, root: Path):
+    """The snapshot through ``sd_weights`` onto the card (parameter counts
+    gated); one full-width UNet call (16x16 latent, batch 3) on the card
+    against the same weights on the CPU within FULL_REL, and the same call
+    with TF32 on past it (the control); the card's times
+    at the IG2G CLI's shapes (a 960x540 view: latent 67x120, batch 3):
+    UNet plain, intermediate + fused, VAE encode and decode, prompt
+    encode, each a mean of IG2G_REPS after one warm-up, and one traced
+    intermediate + fused pair (device busy time, top kernels)."""
+    import torch
+
+    from gs2d_torch.ig2g import sd_weights
+    from gs2d_torch.ig2g.clip_text import PromptEncoder
+    from gs2d_torch.ig2g.sdnet import FreeUParams
+    from gs2d_torch.ig2g.vae import vae_decode, vae_encode_moments
+    t0 = time.perf_counter()
+    unet = sd_weights.load_unet(str(root), device="cuda")
+    vae_m = sd_weights.load_vae(str(root), device="cuda")
+    enc = PromptEncoder(str(root), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    counts = {"unet": sum(p.numel() for p in unet.parameters()),
+              "vae": sum(p.numel() for p in vae_m.parameters()),
+              "text_encoder": sum(p.numel() for p in enc.model.parameters())}
+    if counts != SD15_COUNTS:
+        raise AssertionError(f"ig2g snapshot parameter counts {counts}")
+    print("ig2g snapshot parameter counts " + json.dumps(counts), flush=True)
+    g = torch.Generator().manual_seed(SD_SEED + 1)
+    with torch.no_grad():
+        x = torch.randn((3, 8, 16, 16), generator=g)
+        ctx = torch.randn((3, 77, 768), generator=g)
+        card = unet(x.cuda(), 500, ctx.cuda()).cpu()
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            card_tf32 = unet(x.cuda(), 500, ctx.cuda()).cpu()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        t1 = time.perf_counter()
+        cpu_unet = sd_weights.load_unet(str(root), device="cpu")
+        cpu = cpu_unet(x, 500, ctx)
+        cpu_s = time.perf_counter() - t1
+        del cpu_unet
+    err = float((card - cpu).abs().max())
+    err_tf32 = float((card_tf32 - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    if not (bool(torch.isfinite(card).all()) and err <= FULL_REL * scale):
+        raise AssertionError(f"ig2g full-width UNet: card against CPU max "
+                             f"abs err {err:.3g}, CPU max {scale:.3g}")
+    if not err_tf32 > FULL_REL * scale:
+        raise AssertionError(f"ig2g full-width UNet: with TF32 on, max abs "
+                             f"err {err_tf32:.3g} is within the FP32 bar "
+                             f"{FULL_REL} x {scale:.3g}")
+    h, w = 67, 120
+    times = {}
+    with torch.no_grad():
+        lat = torch.randn((3, 8, h, w), device="cuda")
+        ctx = enc.encode(IG2G_PROMPT)
+        fr = FreeUParams()
+        unet(lat, 500, ctx, freeu=fr)
+        times["unet_ms"] = cuda_ms(lambda: unet(lat, 500, ctx, freeu=fr),
+                                   IG2G_REPS)
+        times["unet_intermediate_fused_ms"] = cuda_ms(
+            lambda: unet.fused(lat, unet.intermediate(lat + 0.1, 500, ctx),
+                               1.0, 500, ctx, freeu=fr), IG2G_REPS)
+        img = torch.rand((1, 3, 540, 960), device="cuda") * 2 - 1
+        mean = vae_encode_moments(vae_m, img)[0]
+        times["vae_encode_ms"] = cuda_ms(lambda: vae_encode_moments(vae_m,
+                                                                    img),
+                                         IG2G_REPS)
+        vae_decode(vae_m, mean)
+        times["vae_decode_ms"] = cuda_ms(lambda: vae_decode(vae_m, mean),
+                                         IG2G_REPS)
+        times["prompt_encode_ms"] = cuda_ms(
+            lambda: enc.encode(IG2G_PROMPT), IG2G_REPS)
+        times["unet_intermediate_fused_profile"] = profile_call(
+            lambda: unet.fused(lat, unet.intermediate(lat + 0.1, 500, ctx),
+                               1.0, 500, ctx, freeu=fr), top=10)
+    flops = sd_tflop(h, w, (540, 960))
+    times["unet_tflop_per_s"] = flops["unet"] / times["unet_ms"] * 1e3
+    times["unet_intermediate_fused_tflop_per_s"] = \
+        flops["unet_intermediate_fused"] \
+        / times["unet_intermediate_fused_ms"] * 1e3
+    report["full"] = {"load_s": load_s, "counts": counts, "tflop": flops,
+                      "unet_16x16_card_vs_cpu_max_abs_err": err,
+                      "unet_16x16_tf32_vs_cpu_max_abs_err": err_tf32,
+                      "unet_16x16_cpu_max_abs": scale, "cpu_load_call_s": cpu_s,
+                      "latent": [h, w], **times}
+    print("ig2g full width " + json.dumps(report["full"]), flush=True)
+    del unet, vae_m, enc
+    torch.cuda.empty_cache()
+
+
+def sd_tflop(h: int, w: int, img_hw) -> dict:
+    """TFLOP of the matrix products and convolutions (FlopCounterMode on
+    the meta device) of a batch-3 UNet call at an h x w latent, of the
+    intermediate + fused pair, of the VAE's encode of an img_hw image and
+    of its decode of the h x w latent."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gs2d_torch.ig2g import sdnet, vae
+    u = sdnet.UNet2DCondition(sdnet.SD15_IP2P_UNET, device="meta")
+    v = vae.AutoencoderKL(vae.SD15_VAE, device="meta")
+    x = torch.zeros((3, 8, h, w), device="meta")
+    ctx = torch.zeros((3, 77, 768), device="meta")
+    img = torch.zeros((1, 3) + tuple(img_hw), device="meta")
+    lat = torch.zeros((1, 4, h, w), device="meta")
+    calls = {"unet": lambda: u(x, 500, ctx),
+             "unet_intermediate_fused": lambda: u.fused(
+                 x, u.intermediate(x, 500, ctx), 1.0, 500, ctx),
+             "vae_encode": lambda: vae.vae_encode_moments(v, img),
+             "vae_decode": lambda: vae.vae_decode(v, lat)}
+    out = {}
+    for name, fn in calls.items():
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            fn()
+        out[name] = fc.get_total_flops() / 1e12
+    return out
+
+
+def ig2g_phase(report, dpath):
+    """Phase 14: the IG2G path. The TINY configs on the card against the
+    CPU; a seeded full-width SD-1.5 snapshot written and loaded; then
+    ``gs2d_torch.cli.train_ig2g.main`` with ``--editor torch`` on the data
+    path's COLMAP dataset at -r 2 (960x540), IG2G_ITERS iterations,
+    edits at IG2G_EDITS (encoded-normalized rendered noise, the
+    intermediate fused-skip mode, FreeU). Counts from zero around the CLI;
+    the latest edit-render K1 call (non-zero noise) and the latest K2 call
+    held against their plain versions."""
+    import torch
+
+    import gs2d_torch.ig2g.ops as ops_mod
+    import gs2d_torch.ops.rasterize.api as api
+    import gs2d_torch.train.step as step_mod
+    from gs2d_torch.cli import train_ig2g
+    from gs2d_torch.models.io import load_ply
+    t_phase = time.perf_counter()
+    report["tiny_err"] = sd_tiny_card_vs_cpu()
+    print("ig2g tiny configs, card against CPU, max abs err "
+          + json.dumps(report["tiny_err"]), flush=True)
+    root = ROOT / "build" / "chip_smoke" / "ig2g_snapshot"
+    report["snapshot"] = write_sd_snapshot(root)
+    print("ig2g snapshot written " + json.dumps(report["snapshot"]),
+          flush=True)
+    sd_full_width(report, root)
+
+    out = dpath["work"] / "ig2g_model"
+    os.environ["GS2D_SD_WEIGHTS"] = str(root)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        with EditRenders(train_ig2g, api) as renders, \
+                EveryCall(ops_mod, "resize_bilinear") as resizes, \
+                StepTimer(step_mod) as steps, \
+                LastCall(api, "rasterize_bwd") as k2:
+            res = train_ig2g.main([
+                "-s", str(dpath["work"] / "colmap"), "-m", str(out), "-r",
+                "2", "--eval", "--iterations", str(IG2G_ITERS),
+                "--ip2p_start_iter", "20", "--ip2p_cycle_iter", "560",
+                "--ip2p_iter", "1", "--editor", "torch", "--noise_type",
+                "encoded-normalized", "--freeu_mode", "intermediate",
+                "--is_freeu", "--save_edited", "--text_prompt", IG2G_PROMPT,
+                "--quiet"])
+            torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("GS2D_SD_WEIGHTS", None)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    edits = [e["iteration"] for e in res["edits"]]
+    if edits != IG2G_EDITS or len(renders.outs) != len(IG2G_EDITS) \
+            or len(resizes.calls) != len(IG2G_EDITS):
+        raise AssertionError(f"ig2g edits at {edits}, {len(renders.outs)} "
+                             f"edit renders, {len(resizes.calls)} resizes")
+    for e, (ren, rn), ((vae_out, _), img) in zip(res["edits"], renders.outs,
+                                                 resizes.calls):
+        e["vae_shape"] = list(vae_out.shape)
+        e["diff_from_render"] = float((img - ren).abs().mean())
+        e["rend_noise"] = [float(rn.min()), float(rn.max())]
+        if tuple(img.shape) != (1, 3, 540, 960) \
+                or e["vae_shape"] != [1, 3, 536, 960] \
+                or not bool(torch.isfinite(img).all()) \
+                or float(img.min()) < 0 or float(img.max()) > 1 \
+                or not e["diff_from_render"] > 1e-3 \
+                or e["rend_noise"] != [0.0, 1.0]:
+            raise AssertionError(f"ig2g edit {e}, image {tuple(img.shape)} "
+                                 f"in [{float(img.min())}, "
+                                 f"{float(img.max())}]")
+    del renders.outs, resizes.calls
+    n_it = IG2G_ITERS
+    if counts["rasterize_fwd"] != n_it + len(IG2G_EDITS) \
+            or counts["rasterize_bwd"] != n_it or len(steps.ms) != n_it:
+        raise AssertionError(f"ig2g launches {counts}, {len(steps.ms)} "
+                             "steps")
+    report["fwd_err"], k1_out = hold_fwd(renders.args, 3,
+                                         "ig2g edit render K1")
+    noise_out = float(k1_out[:, 10:13].abs().max())
+    report["bwd_err"] = hold_bwd(k2.args, 3, "ig2g K2")
+    del renders, k2, k1_out
+    if not noise_out > 0:
+        raise AssertionError("ig2g: the edit render's K1 noise channels are "
+                             "zero")
+    if not all(math.isfinite(x) for x in res["losses"]) \
+            or len(res["losses"]) != n_it:
+        raise AssertionError(f"ig2g losses {res['losses']}")
+    ply = out / "point_cloud" / f"iteration_{n_it}" / "point_cloud.ply"
+    state = load_ply(str(ply), device="cuda")
+    if state.params.xyz.shape[0] != res["points"] \
+            or not bool(torch.isfinite(state.params.xyz).all()):
+        raise AssertionError(f"ig2g PLY {ply}: N {state.params.xyz.shape[0]}"
+                             f" against {res['points']}")
+    pngs = sorted(p.name for p in (out / "edited").iterdir())
+    if len(pngs) != len(IG2G_EDITS):
+        raise AssertionError(f"ig2g saved edits {pngs}")
+    report["counts"] = counts
+    report["cli"] = {
+        "cli_s": cli_s, "edits": res["edits"],
+        "s_per_edit": sum(e["s"] for e in res["edits"]) / len(IG2G_EDITS),
+        "step_ms_mean": sum(steps.ms) / n_it,
+        "step_ms_after_first_10": sum(steps.ms[10:]) / (n_it - 10),
+        "losses_first_last": [res["losses"][0], res["losses"][-1]],
+        "points": res["points"], "peak_gib": peak, "launches": counts,
+        "k1_noise_channel_max_abs": noise_out,
+        "fwd_err": report["fwd_err"], "bwd_err": list(report["bwd_err"]),
+        "phase_s": time.perf_counter() - t_phase}
+    print("ig2g CLI " + json.dumps(report["cli"]), flush=True)
 
 
 def main() -> int:
@@ -2726,12 +3178,18 @@ def main() -> int:
     data_path(dpath)
     ev = {}
     eval_phase(ev, dpath)
+    ig = {}
+    ig2g_phase(ig, dpath)
+    shutil.rmtree(dpath["work"], ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "chip_smoke" / "ig2g_snapshot",
+                  ignore_errors=True)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], dpath["fwd_err"],
-                             ev["fwd_err"])
+                             ev["fwd_err"], ig["fwd_err"])
+    fwd["ig2g_noise_max_abs_err"] = ig["fwd_err"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], dpath["bwd_err"][0],
-                             ev["bwd_err"][0])
+                             ev["bwd_err"][0], ig["bwd_err"][0])
     bwd["max_norm_err"] = max(bwd["max_norm_err"], dpath["bwd_err"][1],
-                              ev["bwd_err"][1])
+                              ev["bwd_err"][1], ig["bwd_err"][1])
     # K1 runs on every path: once per view and once per step
     fwd["launches_by_path"]["train_step"] = bwd.pop("fwd_launches_train")
     fwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_fwd"]
@@ -2742,6 +3200,7 @@ def main() -> int:
     fwd["launches_by_path"]["bench"] = \
         bench["kernel_launches"]["rasterize_fwd"]
     fwd["launches_by_path"]["eval"] = ev["counts"]["rasterize_fwd"]
+    fwd["launches_by_path"]["ig2g"] = ig["counts"]["rasterize_fwd"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     bwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_bwd"]
     bwd["launches_by_path"]["data_path_train"] = \
@@ -2749,11 +3208,13 @@ def main() -> int:
     bwd["launches_by_path"]["bench"] = \
         bench["kernel_launches"]["rasterize_bwd"]
     bwd["launches_by_path"]["eval"] = ev["counts"]["rasterize_bwd"]
+    bwd["launches_by_path"]["ig2g"] = ig["counts"]["rasterize_bwd"]
     bwd["launches"] = sum(bwd["launches_by_path"].values())
     gat["launches_by_path"] = {
         "loop": loop["launches"]["gather_rows"],
         "data_path_train": dpath["train_counts"]["gather_rows"],
-        "eval": ev["counts"]["gather_rows"]}
+        "eval": ev["counts"]["gather_rows"],
+        "ig2g": ig["counts"]["gather_rows"]}
     gat["launches"] = sum(gat["launches_by_path"].values())
     gat["densify"] = [{k: d[k] for k in ("iteration", "n_before", "n_after",
                                          "ms", "gather_ms",
@@ -2764,7 +3225,7 @@ def main() -> int:
             "launches_by_path", "bound_detail", "ptxas")
     fwd_keys = keys + ("ms_cull_off", "plain_ms_small", "kernel_ms_small",
                        "full_image_px_agree", "full_image_med_agree",
-                       "full_image_contrib_agree")
+                       "full_image_contrib_agree", "ig2g_noise_max_abs_err")
     bwd_keys = keys + ("ms_cull_off", "max_norm_err", "step_ms",
                        "card_steps_per_s")
     gat_keys = keys + ("wrapper_ms", "replaces_also", "probe_shape",

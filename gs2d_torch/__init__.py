@@ -25,7 +25,11 @@ CLIs (``cli/``) — and the evaluation of the paper's benchmarks: JPEG
 scenes (``scene/jpeg.py``, its Huffman decoder the host library
 ``csrc/jpeg_entropy.cpp``), LPIPS (``eval/lpips.py``), the DTU and Tanks
 and Temples protocols (``eval/``) and their harnesses
-(``cli/{m360,dtu,tnt}_eval.py``). Entry points take a ``device`` argument that defaults to
+(``cli/{m360,dtu,tnt}_eval.py``) — and the IG2G editing path
+(``cli/train_ig2g.py``): the SD-1.5 InstructPix2Pix UNet, VAE and CLIP
+text tower, the tokenizer, the weight loader and the editor
+(``ig2g/``), with the port's own safetensors codec
+(``utils/safetensors.py``). Entry points take a ``device`` argument that defaults to
 ``"cuda"``; on a CPU tensor each kernel wrapper runs its plain PyTorch
 version instead.
 """

@@ -512,3 +512,73 @@ def test_lpips_on_the_card_matches_the_cpu(cuda, tmp_path):
     finally:
         torch.backends.cudnn.allow_tf32 = before
     assert got == pytest.approx(ref, rel=1e-4)
+
+
+def test_render_noise_channel_cuda_matches_cpu(cuda):
+    """The IG2G edit render: per-Gaussian noise composited by K1 into the
+    rend_noise channel on the card, against the CPU at 2e-4."""
+    outs = []
+    noise = torch.randn((300, 3), generator=torch.Generator().manual_seed(3))
+    for dev in (cuda, torch.device("cpu")):
+        cam, (m, s, q, o, c) = _scene(dev, n=300)
+        state = GaussianState(GaussianParams(
+            xyz=m, features_dc=((c - 0.5) / 0.28209479177387814)[:, None],
+            features_rest=torch.zeros((300, 15, 3), device=dev),
+            scaling=torch.log(s), rotation=q,
+            opacity=torch.logit(o)[:, None]), active_sh_degree=3)
+        outs.append(render(cam, state, torch.zeros(3, device=dev),
+                           noise=noise.to(dev), device=dev))
+    got, ref = outs[0]["rend_noise"].cpu(), outs[1]["rend_noise"]
+    assert float(ref.min()) == 0.0 and float(ref.max()) == 1.0
+    torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
+
+
+class _CpuDraws:
+    """The editor's draws from a CPU generator, moved to the card, so the
+    card and the CPU edit see the same numbers."""
+
+    def __init__(self, device):
+        from gs2d_torch.ig2g.ip2p import Draws
+        self.draws, self.device = Draws(7, "cpu"), device
+
+    def timestep(self, lo, hi):
+        return self.draws.timestep(lo, hi)
+
+    def normal(self, shape):
+        return self.draws.normal(shape).to(self.device)
+
+    def posterior(self, shape):
+        return self.draws.posterior(shape).to(self.device)
+
+
+def test_ig2g_edit_on_the_card_matches_the_cpu(cuda):
+    """``edit_image`` with a TINY SD backend (fused-skip mode, FreeU) on
+    the card against the CPU, the same seeded weights and draws: within
+    1e-5 on the [0, 1] image."""
+    from gs2d_torch.ig2g import ip2p, sdnet, vae
+    from gs2d_torch.ig2g.sd_weights import carry_params
+    g = torch.Generator().manual_seed(0)
+    unet_p = sdnet.init_params(sdnet.unet_param_shapes(sdnet.TINY_UNET), g,
+                               device="cpu")
+    vae_p = sdnet.init_params(vae.vae_param_shapes(vae.TINY_VAE), g,
+                              device="cpu")
+    img, cond, noise = (torch.rand((1, 3, 40, 24), generator=g)
+                        for _ in range(3))
+    ctx = torch.randn((3, 5, 16), generator=g)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        be = ip2p.TorchSDBackend(
+            unet=carry_params(sdnet.UNet2DCondition(sdnet.TINY_UNET,
+                                                    device="meta"),
+                              unet_p, "unet", dev),
+            vae=carry_params(vae.AutoencoderKL(vae.TINY_VAE, device="meta"),
+                             vae_p, "vae", dev),
+            freeu=sdnet.FreeUParams(), device=dev)
+        ed = ip2p.InstructPix2Pix(ip2p.IP2PParams(
+            diffusion_steps=4, noise_type="encoded-normalized",
+            freeu_mode="intermediate"), backend=be, device=dev)
+        ed.draws = _CpuDraws(dev)
+        outs.append(ed.edit_image(ctx.to(dev), img.to(dev), cond.to(dev),
+                                  noise.to(dev)).cpu())
+    assert outs[0].shape == (1, 3, 40, 24)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-5)

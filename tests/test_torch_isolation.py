@@ -59,6 +59,8 @@ def test_renderer_imports_with_jax_blocked():
                "import gs2d_torch.eval.geometry, gs2d_torch.eval.dtu\n"
                "import gs2d_torch.eval.tnt, gs2d_torch.cli.m360_eval\n"
                "import gs2d_torch.cli.dtu_eval, gs2d_torch.cli.tnt_eval\n"
+               "import gs2d_torch.cli.train_ig2g, gs2d_torch.ig2g.pipeline\n"
+               "import gs2d_torch.ig2g.sd_weights\n"
                "print(sorted(m for m in sys.modules "
                "if m.startswith(('jax', 'gs2d_tpu'))))\n")
     assert out.strip() == "['gs2d_tpu', 'jax']"   # only the blocked stubs
@@ -138,13 +140,72 @@ def test_cli_without_a_card_raises(tmp_path):
         "loop.train = never\n"
         "scene.Scene = never\n"
         f"model = {str(tmp_path / 'model')!r}\n"
+        "from gs2d_torch.cli import train_ig2g\n"
         "for cli, argv in ((train, ['-s', 'data', '-m', model]),\n"
-        "                  (render, ['-m', model])):\n"
+        "                  (render, ['-m', model]),\n"
+        "                  (train_ig2g, ['-s', 'data', '-m', model])):\n"
         "    try:\n"
         "        cli.main(argv)\n"
         "        print('ran')\n"
         "    except RuntimeError as e:\n"
         "        print('raised', 'CUDA' in str(e))\n",
         CUDA_VISIBLE_DEVICES="")
-    assert out.split("\n")[:2] == ["raised True", "raised True"]
+    assert out.split("\n")[:3] == ["raised True"] * 3
     assert not (tmp_path / "model").exists()
+
+
+IG2G_FILES = sorted((ROOT / "gs2d_torch" / "ig2g").rglob("*.py")) + [
+    ROOT / "gs2d_torch" / "utils" / "safetensors.py",
+    ROOT / "gs2d_torch" / "cli" / "train_ig2g.py"]
+NOT_ON_THE_CARD = ("transformers", "safetensors", "diffusers", "PIL", "cv2",
+                   "regex", "ftfy")
+
+
+def test_ig2g_imports_nothing_the_cards_machine_lacks():
+    assert len(IG2G_FILES) == 11
+    bad = [(str(p.relative_to(ROOT)), m) for p in IG2G_FILES
+           for m in _imported_modules(p)
+           if m.split(".")[0] in NOT_ON_THE_CARD]
+    assert bad == []
+
+
+def test_ig2g_runs_with_those_libraries_blocked(tmp_path):
+    """With every library of NOT_ON_THE_CARD (and JAX) blocked: a
+    safetensors file round-trips, a synthetic tokenizer encodes, the SD
+    backend loads a tiny snapshot and edits, and the editor without a card
+    raises unless the CPU is asked for."""
+    blocked = list(NOT_ON_THE_CARD) + ["jax", "gs2d_tpu"]
+    out = _run(
+        f"import sys\nfor m in {blocked!r}:\n    sys.modules[m] = None\n"
+        "import os, torch\n"
+        "from gs2d_torch.utils import safetensors as st\n"
+        "from gs2d_torch.ig2g import sdnet, vae, sd_weights, ip2p\n"
+        "from gs2d_torch.ig2g.tokenizer import (CLIPTokenizer,\n"
+        "    write_synthetic_tokenizer)\n"
+        f"root = {str(tmp_path)!r}\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "for sub, spec in (('unet', sdnet.unet_param_shapes(sdnet.TINY_UNET)),\n"
+        "                  ('vae', vae.vae_param_shapes(vae.TINY_VAE))):\n"
+        "    os.makedirs(os.path.join(root, sub))\n"
+        "    p = sdnet.init_params(spec, g, device='cpu', dtype=torch.float16)\n"
+        "    st.save_file(p, os.path.join(root, sub,\n"
+        "                 'diffusion_pytorch_model.safetensors'))\n"
+        "write_synthetic_tokenizer(os.path.join(root, 'tokenizer'), ['snow'])\n"
+        "tok = CLIPTokenizer.from_snapshot(os.path.join(root, 'tokenizer'))\n"
+        "print(tok(['snow'])[0][:3])\n"
+        "be = ip2p.TorchSDBackend(root, sdnet.TINY_UNET, vae.TINY_VAE,\n"
+        "                         device='cpu')\n"
+        "ed = ip2p.InstructPix2Pix(ip2p.IP2PParams(diffusion_steps=2),\n"
+        "                          backend=be, device='cpu')\n"
+        "img = torch.rand(1, 3, 24, 16, generator=g)\n"
+        "out = ed.edit_image(torch.zeros(3, 5, 16), img, img, img)\n"
+        "print(tuple(out.shape), bool(torch.isfinite(out).all()))\n"
+        "try:\n"
+        "    ip2p.InstructPix2Pix(ip2p.IP2PParams())\n"
+        "    print('built on the CPU')\n"
+        "except (RuntimeError, AssertionError):\n"
+        "    print('raised')\n",
+        CUDA_VISIBLE_DEVICES="")
+    vocab = 256 * 2 + 3
+    assert out.split("\n")[:3] == [f"[{vocab}, {vocab - 1}, {vocab + 1}]",
+                                    "(1, 3, 24, 16) True", "raised"]
