@@ -1062,7 +1062,7 @@ def full_train(report, state):
           flush=True)
 
     # --- K2 against its plain version at the step's inputs ----------------
-    packed, gid, tstart, tcount, out, cot, med, nc, _, _ = bwd_args
+    packed, gid, tstart, tcount, out, cot, med, nc = bwd_args[:8]
     with torch.no_grad():
         d = kernel_bwd.rasterize_bwd(*bwd_args)
         T = out.shape[0]
@@ -2065,6 +2065,13 @@ def blender_check(work: Path, surf) -> dict:
             "extent": scene.cameras_extent}
 
 
+def data_train_argv(data: Path, model: Path) -> list:
+    """The train CLI's flags of the data path's run (and of the torchrun
+    run that repeats its first TORCHRUN_ITERS iterations)."""
+    return ["-s", str(data), "-m", str(model), "--eval", "--quiet",
+            "--no_viewer", "--device", DEVICE]
+
+
 def data_path(report):
     """Phase 12: the data path on a dataset on disk, through the CLIs'
     ``main(argv)``: write a COLMAP dataset of DATA_VIEWS 1920x1080 views
@@ -2133,11 +2140,11 @@ def data_path(report):
         t0 = time.perf_counter()
         with LoopProbe() as probe, LastCall(api, "rasterize_fwd") as k1, \
                 LastCall(api, "rasterize_bwd") as k2:
-            res = train_cli.main([
-                "-s", str(data), "-m", str(model), "--eval",
+            res = train_cli.main(data_train_argv(data, model) + [
                 "--iterations", str(DATA_ITERS), "--test_iterations", "1",
-                str(DATA_ITERS), "--save_iterations", str(DATA_ITERS),
-                "--checkpoint_iterations", str(DATA_ITERS), "--quiet"])
+                str(DATA_ITERS), "--save_iterations", str(TORCHRUN_ITERS),
+                str(DATA_ITERS), "--checkpoint_iterations",
+                str(DATA_ITERS)])
             torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     finally:
@@ -2304,7 +2311,7 @@ def data_path(report):
           flush=True)
     # the eval phase scores this model and mesh; main deletes ``work``
     report.update(train_counts=train_counts, render_counts=render_counts,
-                  work=work, model=model, surf=surf,
+                  work=work, data=data, model=model, surf=surf, windows=wins,
                   mesh=rres["mesh"].replace(".ply", "_post.ply"))
     print("data path " + json.dumps({
         "write_s": write_s, "codec": codec, "scene_load_s": seen["load_s"],
@@ -2533,8 +2540,8 @@ def m360_on_jpegs(report, work: Path, npz: Path):
         m360_eval.main(["-m360", str(root), "-o", str(work / "m360_out"),
                         "--scenes", "bicycle", "--iterations",
                         str(EVAL_ITERS), "--test_iterations", "1",
-                        str(EVAL_ITERS), "--quiet", "--device",
-                        EVAL_DEVICE])
+                        str(EVAL_ITERS), "--quiet", "--no_viewer",
+                        "--device", EVAL_DEVICE])
         torch.cuda.synchronize()
     harness_s = time.perf_counter() - t0
     counts = read_counts()
@@ -3108,8 +3115,441 @@ def ig2g_phase(report, dpath):
         "phase_s": time.perf_counter() - t_phase}
     print("ig2g CLI " + json.dumps(report["cli"]), flush=True)
 
+# --- phase 15: several GPUs' code paths and the live viewer -----------------
+
+DEVICE = "cuda"                    # the new phases' device, passed on
+BANDS = 4                          # 1080 rows: 272/272/272/264
+BAND_COT_SEED = 5
+TORCHRUN_ITERS = 700               # densify at 600 and 700
+TORCHRUN_TIMEOUT_S = 300
+NCCL_REPS = 2                      # (plain, NCCL, NCCL, plain) rounds
+VIEW_FRAMES = 6                    # one per render mode
+VIEW_TIMEOUT_S = 120
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def image_close(got, ref, what) -> float:
+    """The JAX sharding bar (tests/test_parallel.py:56-63): channels other
+    than the median at rtol 1e-3 / atol 1e-4, the median differing on
+    fewer than 1e-4 of the pixels → max abs error of the others."""
+    import torch
+    other = [c for c in range(got.shape[0]) if c != 8]
+    a, b = got[other], ref[other]
+    if not torch.allclose(a, b, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"{what}: max abs err "
+                             f"{(a - b).abs().max().item():.3g}")
+    flips = ((got[8] - ref[8]).abs() > 1e-4).float().mean().item()
+    if not flips < 1e-4:
+        raise AssertionError(f"{what}: the median differs on {flips:.3g} "
+                             "of the pixels")
+    return (a - b).abs().max().item()
+
+
+def band_phase(report, state):
+    """Phase 15a: view 0 of the 1M-splat scene at 1920x1080 in BANDS row
+    bands through ``rasterize_band`` (K1 at each band's height and rows),
+    stitched and held against the full view's K1 render at the sharding
+    bar (bit-identity is expected and printed); K2 of each band under a
+    seeded linear cotangent,
+    the per-record gradients summed over the bands against the full
+    view's at the gradient bar; each band's K1 and K2 call against the
+    plain versions on sampled tiles; ms and slots per band."""
+    import numpy as np
+    import torch
+
+    import gs2d_torch.ops.rasterize.api as api
+    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.parallel.data_parallel import rasterize_band
+    from gs2d_torch.parallel.multihost import band_rows
+    from gs2d_torch.render.renderer import prepare
+
+    cam = lookat(WIDTH, HEIGHT, 0.0, dist=3.0, fov_deg=70.0, device=DEVICE)
+    with torch.no_grad():
+        pre0 = prepare(cam, state, max_sh_degree=SH_DEGREE)
+    names = ("A", "B", "C", "c2", "opacity", "rgb", "normal", "noise")
+    leaves = [getattr(pre0, f).detach().clone().requires_grad_()
+              for f in names]
+    pre = pre0._replace(**dict(zip(names, leaves)))
+    cot = torch.as_tensor(np.random.default_rng(BAND_COT_SEED).normal(
+        size=(15, HEIGHT, WIDTH)).astype(np.float32), device=DEVICE)
+    bands = band_rows(HEIGHT, BANDS)
+
+    # --- the path: counts from zero, the full view, then every band -------
+    zero_counts()
+    with EveryCall(api, "rasterize_fwd") as k1, \
+            EveryCall(api, "rasterize_bwd") as k2:
+        full, _ = api.rasterize(pre, WIDTH, HEIGHT)
+        g_full = torch.autograd.grad((full * cot).sum(), leaves)
+        outs, g_sum = [], [torch.zeros_like(x) for x in leaves]
+        for y0, y1 in bands:
+            out, _ = rasterize_band(pre, WIDTH, HEIGHT, y0, y1)
+            g = torch.autograd.grad((out * cot[:, y0:y1]).sum(), leaves)
+            outs.append(out.detach())
+            g_sum = [a + b for a, b in zip(g_sum, g)]
+        torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["rasterize_fwd"] != BANDS + 1 \
+            or counts["rasterize_bwd"] != BANDS + 1:
+        raise AssertionError(f"bands: launches {counts}")
+    stitched = torch.cat(outs, dim=1)
+    img_err = image_close(stitched, full.detach(), "bands stitched vs full")
+    identical = torch.equal(stitched, full.detach())
+    grad = [grad_err(a, b, f"bands d {f}")
+            for f, a, b in zip(names, g_sum, g_full)]
+
+    # --- each band's kernels against the plain versions, and timed --------
+    fwd_errs, bwd_errs, rows = [], [], []
+    for i, ((fargs, _), (bargs, _)) in enumerate(zip(k1.calls, k2.calls)):
+        what = "full view" if i == 0 else f"band {i - 1} {bands[i - 1]}"
+        fwd_errs.append(hold_fwd(fargs, 20 + i, f"{what} K1")[0])
+        bwd_errs.append(hold_bwd(bargs, 20 + i, f"{what} K2"))
+        rows.append({
+            "rows": list(bands[i - 1]) if i else [0, HEIGHT],
+            "slots": int(fargs[1].numel()),
+            "k1_ms": cuda_ms(lambda: kernel_fwd.rasterize_fwd(*fargs),
+                             KERNEL_REPS),
+            "k2_ms": cuda_ms(lambda: kernel_bwd.rasterize_bwd(*bargs),
+                             KERNEL_REPS)})
+    del k1, k2
+    report.update(band_counts=counts, band_fwd_err=max(fwd_errs),
+                  band_bwd_err=(max(e[0] for e in bwd_errs),
+                                max(e[1] for e in bwd_errs)),
+                  bands=rows)
+    summary = {"bands": rows, "stitched_max_abs_err": img_err,
+               "stitched_bit_identical": identical,
+               "grad_max_norm_err": max(e[1] for e in grad),
+               "k1_bands_ms_sum": sum(r["k1_ms"] for r in rows[1:]),
+               "k2_bands_ms_sum": sum(r["k2_ms"] for r in rows[1:]),
+               "slots_bands_sum": sum(r["slots"] for r in rows[1:]),
+               "launches": counts,
+               "k1_max_abs_err": max(fwd_errs),
+               "k2_max_norm_err": max(e[1] for e in bwd_errs)}
+    print("bands " + json.dumps(summary), flush=True)
+
+
+def nccl_step_phase(report, state):
+    """Phase 15b: the bench.py train-step point through
+    ``make_train_step(group=...)`` in a real NCCL process group of one
+    rank (the band gather and the gradient all-reduce run as NCCL
+    collectives), against the plain step from the same state: bit for
+    bit. Step ms in turns (plain, NCCL, NCCL, plain), the all-reduce's
+    and the gather's ms and bytes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gs2d_torch.config import OptimizationParams
+    from gs2d_torch.parallel.multihost import initialize_distributed
+    from gs2d_torch.train.optim import FIELDS, init_adam
+    from gs2d_torch.train.step import TrainState, make_train_step
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                           backend="nccl" if DEVICE == "cuda" else "gloo")
+    try:
+        cam = lookat(WIDTH, HEIGHT, 0.0, dist=3.0, fov_deg=70.0,
+                     device=DEVICE)
+        gt = torch.as_tensor(np.random.default_rng(1).random(
+            (3, HEIGHT, WIDTH), np.float32), device=DEVICE)
+        bg = torch.zeros(3, device=DEVICE)
+        cfg = OptimizationParams(lambda_dist=10.0)
+        steps = {"plain": make_train_step(cfg, max_sh_degree=SH_DEGREE,
+                                          depth_ratio=1.0, device=DEVICE),
+                 "nccl": make_train_step(cfg, max_sh_degree=SH_DEGREE,
+                                         depth_ratio=1.0, device=DEVICE,
+                                         group=dist.group.WORLD)}
+        ts0 = TrainState(gaussians=state, opt=init_adam(state.params))
+        for fn in steps.values():                 # warm-up
+            fn(ts0, cam, gt, TRAIN_ITER, bg)
+        torch.cuda.synchronize()
+        zero_counts()
+        with CallTimer(dist, "all_reduce") as ar, \
+                CallTimer(dist, "all_gather") as ag:
+            ts_n, m_n = steps["nccl"](ts0, cam, gt, TRAIN_ITER, bg)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        if counts["rasterize_fwd"] != 1 or counts["rasterize_bwd"] != 1:
+            raise AssertionError(f"NCCL step: launches {counts}")
+        ts_p, m_p = steps["plain"](ts0, cam, gt, TRAIN_ITER, bg)
+        same = same_state(ts_n, ts_p) and torch.equal(
+            m_n["total_loss"], m_p["total_loss"])
+        if not same:
+            for f in FIELDS:
+                grad_err(getattr(ts_n.gaussians.params, f),
+                         getattr(ts_p.gaussians.params, f),
+                         f"NCCL step {f}")
+        ms = {"plain": [], "nccl": []}
+        for kind in ("plain", "nccl", "nccl", "plain") * NCCL_REPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[kind](ts0, cam, gt, TRAIN_ITER, bg)
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+        ar_bytes = ar.last_args[0].numel() * ar.last_args[0].element_size()
+        gathered = ag.last_args[1] if ag.ms else None
+        rec = {"world_size": dist.get_world_size(),
+               "backend": dist.get_backend(), "bit_identical": same,
+               "loss": float(m_n["total_loss"]), "launches": counts,
+               "step_ms": ms,
+               "all_reduce": {**ar.stats(), "bytes": ar_bytes},
+               "all_gather": {**ag.stats(), "last_bytes": (
+                   gathered.numel() * gathered.element_size()
+                   if gathered is not None else 0)}}
+    finally:
+        dist.destroy_process_group()
+    report.update(nccl_counts=counts, nccl=rec)
+    print("nccl step " + json.dumps(rec), flush=True)
+
+
+def torchrun_child(out_path: str, argv: list) -> int:
+    """The rank that ``torchrun_phase`` starts: ``gs2d_torch.cli.train``'s
+    ``main(argv)`` (what ``python -m gs2d_torch.cli.train`` runs), with the
+    loop probed as in the data path (every densify replayed through the
+    plain gather), counts from zero, the latest K1 and K2 calls held
+    against their plain versions; the report goes to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    import gs2d_torch.ops.rasterize.api as api
+    from gs2d_torch.cli import train as train_cli
+    zero_counts()
+    t0 = time.perf_counter()
+    with LoopProbe() as probe, LastCall(api, "rasterize_fwd") as k1, \
+            LastCall(api, "rasterize_bwd") as k2:
+        res = train_cli.main(argv)
+        torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    rec = {"cli_s": cli_s, "launches": counts, "windows": res["windows"],
+           "psnr": res["psnr"], "densify": probe.densify,
+           "world_size": dist.get_world_size(),
+           "backend": dist.get_backend(),
+           "device": torch.cuda.get_device_name(torch.cuda.current_device()),
+           "fwd_err": hold_fwd(k1.args, 3, "torchrun train K1")[0],
+           "bwd_err": hold_bwd(k2.args, 3, "torchrun train K2")}
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(rec))
+    return 0
+
+
+def torchrun_phase(report, dpath):
+    """Phase 15c: ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` starting the train CLI with ``--multihost`` (one
+    NCCL rank, its ground truth assembled from its row band) on the data
+    path's dataset for TORCHRUN_ITERS iterations (densify at 600 and 700,
+    so the gather runs); its PLY against the data path's plain run's PLY
+    at the same iteration (the same flags and seed), its ms/it beside the
+    plain run's."""
+    from gs2d_torch.models.io import load_ply
+    from gs2d_torch.train.optim import FIELDS
+
+    work = dpath["work"]
+    model, out = work / "model_torchrun", work / "torchrun.json"
+    argv = data_train_argv(dpath["data"], model) + [
+        "--iterations", str(TORCHRUN_ITERS), "--test_iterations",
+        str(TORCHRUN_ITERS), "--multihost"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"),
+           "--torchrun-child", str(out)] + argv
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=TORCHRUN_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
+        raise AssertionError(f"torchrun train CLI exited {res.returncode}")
+    child = json.loads(out.read_text())
+    ply = f"point_cloud/iteration_{TORCHRUN_ITERS}/point_cloud.ply"
+    a, b = model / ply, dpath["model"] / ply
+    same = a.read_bytes() == b.read_bytes()
+    if not same:
+        sa, sb = (load_ply(str(x), max_sh_degree=SH_DEGREE, device=DEVICE)
+                  for x in (a, b))
+        if sa.params.xyz.shape != sb.params.xyz.shape:
+            raise AssertionError(f"torchrun PLY: N {sa.params.xyz.shape[0]} "
+                                 f"against {sb.params.xyz.shape[0]}")
+        for f in FIELDS:
+            grad_err(getattr(sa.params, f), getattr(sb.params, f),
+                     f"torchrun PLY {f}")
+    counts = child["launches"]
+    if counts["rasterize_fwd"] < TORCHRUN_ITERS \
+            or counts["rasterize_bwd"] != TORCHRUN_ITERS \
+            or counts["gather_rows"] == 0 \
+            or [d["iteration"] for d in child["densify"]] != [600, 700] \
+            or child["world_size"] != 1 \
+            or child["backend"] != ("nccl" if DEVICE == "cuda" else "gloo"):
+        raise AssertionError(f"torchrun train CLI: {child}")
+    plain = dpath["windows"][:TORCHRUN_ITERS // 100]
+    rec = {"wall_s": wall_s, "cli_s": child["cli_s"],
+           "ply_bit_identical": same, "launches": counts,
+           "ms_per_it": [w["ms_per_it"] for w in child["windows"]],
+           "plain_ms_per_it": [w["ms_per_it"] for w in plain],
+           "points": [w["points"] for w in child["windows"]],
+           "plain_points": [w["points"] for w in plain],
+           "densify": [{k: d[k] for k in ("iteration", "n_before",
+                                          "n_after", "gather_launches")}
+                       for d in child["densify"]],
+           "fwd_err": child["fwd_err"], "bwd_err": child["bwd_err"],
+           "device": child["device"]}
+    report.update(torchrun_counts=counts, torchrun=rec)
+    print("torchrun train " + json.dumps(rec), flush=True)
+
+
+def sibr_message(cam, mode: int) -> bytes:
+    """The SIBR viewer's camera message for a port Camera: the view matrix
+    with its y and z columns negated and the view-projection matrix with
+    its y column negated, which the server undoes."""
+    import struct
+    wv = cam.world_view.cpu().numpy().copy()
+    fp = cam.full_proj.cpu().numpy().copy()
+    wv[:, 1:3] = -wv[:, 1:3]
+    fp[:, 1] = -fp[:, 1]
+    msg = {"resolution_x": cam.width, "resolution_y": cam.height,
+           "train": False, "fov_y": cam.fovy, "fov_x": cam.fovx,
+           "z_near": cam.znear, "z_far": cam.zfar, "keep_alive": True,
+           "scaling_modifier": 1.0,
+           "view_matrix": wv.flatten().tolist(),
+           "view_projection_matrix": fp.flatten().tolist(),
+           "render_mode": mode}
+    payload = json.dumps(msg).encode()
+    return struct.pack("I", len(payload)) + payload
+
+
+def recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(n - len(buf), 1 << 20))
+        if not chunk:
+            raise AssertionError("viewer server closed the connection")
+        buf += chunk
+    return bytes(buf)
+
+
+def viewer_phase(report, dpath):
+    """Phase 15d: ``gs2d_torch.cli.view.main`` (what ``python -m
+    gs2d_torch.cli.view`` runs) serving the data path's model on a free
+    port, in a thread; a client asks for a 1920x1080 frame in each of the
+    six render modes. Gates: the greeting, every reply's size, source path
+    and count; the RGB frame within 1/255 of ``render()``'s image of the
+    same camera; K1 once per frame, and its latest call held against the
+    plain version. Round-trip and render ms per frame."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    import gs2d_torch.ops.rasterize.api as api
+    import gs2d_torch.render.renderer as renderer_mod
+    from gs2d_torch.cli import view as view_cli
+    from gs2d_torch.config import load_cfg_args
+    from gs2d_torch.models.io import load_ply
+    from gs2d_torch.render.network_gui import frame_bytes
+
+    model_dir = dpath["model"]
+    model, pipe, _ = load_cfg_args(str(model_dir / "cfg_args.json"))
+    cam = lookat(WIDTH, HEIGHT, 30.0, dist=3.2, fov_deg=60.0, device=DEVICE)
+    port, stop, failed = free_port(), threading.Event(), []
+
+    def serve():
+        try:
+            view_cli.main(["-m", str(model_dir), "--port", str(port),
+                           "--device", DEVICE], stop)
+        except Exception as e:                 # noqa: BLE001 - re-raised
+            failed.append(e)
+
+    frames, trip_ms = [], []
+    zero_counts()
+    with CallTimer(renderer_mod, "render") as rt, \
+            LastCall(api, "rasterize_fwd") as k1:
+        server = threading.Thread(target=serve, daemon=True)
+        server.start()
+        deadline = time.monotonic() + VIEW_TIMEOUT_S
+        while True:
+            if failed or time.monotonic() > deadline:
+                raise AssertionError(f"viewer server did not start: {failed}")
+            try:
+                sock = socket.create_connection(("127.0.0.1", port),
+                                                timeout=VIEW_TIMEOUT_S)
+                break
+            except OSError:
+                time.sleep(0.1)
+        try:
+            items = json.loads(recv_exact(sock, int.from_bytes(
+                recv_exact(sock, 4), "little")))
+            for mode in range(VIEW_FRAMES):
+                t0 = time.perf_counter()
+                sock.sendall(sibr_message(cam, mode))
+                img = recv_exact(sock, WIDTH * HEIGHT * 3)
+                verify = recv_exact(sock, int.from_bytes(
+                    recv_exact(sock, 4), "little")).decode()
+                metrics = json.loads(recv_exact(sock, int.from_bytes(
+                    recv_exact(sock, 4), "little")))
+                trip_ms.append((time.perf_counter() - t0) * 1e3)
+                frames.append(np.frombuffer(img, np.uint8).reshape(
+                    HEIGHT, WIDTH, 3))
+                if verify != model.source_path or metrics["#"] <= 0:
+                    raise AssertionError(f"viewer reply {verify!r} "
+                                         f"{metrics}")
+        finally:
+            sock.close()
+            stop.set()
+            server.join(timeout=VIEW_TIMEOUT_S)
+        counts = read_counts()
+    if server.is_alive() or failed:
+        raise AssertionError(f"viewer server did not stop: {failed}")
+    if items != list(model.render_items) or counts["rasterize_fwd"] \
+            != VIEW_FRAMES or counts["rasterize_bwd"]:
+        raise AssertionError(f"viewer: items {items}, launches {counts}")
+    err, _ = hold_fwd(k1.args, 4, "viewer K1")
+    del k1
+    # the RGB frame against render() of the same camera
+    state = load_ply(str(model_dir / "point_cloud" /
+                         f"iteration_{DATA_ITERS}" / "point_cloud.ply"),
+                     max_sh_degree=model.sh_degree, device=DEVICE)
+    with torch.no_grad():
+        ref = renderer_mod.render(
+            cam, state, torch.zeros(3, device=DEVICE),
+            max_sh_degree=model.sh_degree, depth_ratio=pipe.depth_ratio,
+            device=DEVICE)["render"]
+    ref = np.frombuffer(frame_bytes(ref), np.uint8).reshape(HEIGHT, WIDTH, 3)
+    rgb_diff = int(np.abs(frames[0].astype(np.int16) - ref).max())
+    if rgb_diff > 1:
+        raise AssertionError(f"viewer RGB frame {rgb_diff}/255 from render()")
+    distinct = len({f.tobytes() for f in frames})
+    rec = {"frames": VIEW_FRAMES, "width": WIDTH, "height": HEIGHT,
+           "distinct_frames": distinct, "rgb_max_diff_255": rgb_diff,
+           "round_trip_ms": trip_ms, "render_ms": rt.ms,
+           "launches": counts, "k1_max_abs_err": err}
+    report.update(viewer_counts=counts, fwd_err=err, viewer=rec)
+    print("viewer " + json.dumps(rec), flush=True)
+
+
+def parallel_phase(report, dpath):
+    """Phase 15a-c: bands, the NCCL step, the train CLI under torchrun."""
+    import torch
+    from gs2d_torch.utils.bench_scenes import bench_state as build
+    t0 = time.perf_counter()
+    state = build(N_SPLATS, rest_seed=0, device=DEVICE)
+    band_phase(report, state)
+    torch.cuda.empty_cache()
+    nccl_step_phase(report, state)
+    del state
+    torch.cuda.empty_cache()
+    torchrun_phase(report, dpath)
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"parallel phase: {report['phase_s']:.1f} s", flush=True)
+
 
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--torchrun-child":
+        return torchrun_child(sys.argv[2], sys.argv[3:])
     if not (ROOT / "gs2d_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repo (no "
               "gs2d_torch package beside it)", file=sys.stderr)
@@ -3180,16 +3620,26 @@ def main() -> int:
     eval_phase(ev, dpath)
     ig = {}
     ig2g_phase(ig, dpath)
+    par = {}
+    parallel_phase(par, dpath)
+    vw = {}
+    viewer_phase(vw, dpath)
     shutil.rmtree(dpath["work"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke" / "ig2g_snapshot",
                   ignore_errors=True)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], dpath["fwd_err"],
-                             ev["fwd_err"], ig["fwd_err"])
+                             ev["fwd_err"], ig["fwd_err"],
+                             par["band_fwd_err"],
+                             par["torchrun"]["fwd_err"], vw["fwd_err"])
     fwd["ig2g_noise_max_abs_err"] = ig["fwd_err"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], dpath["bwd_err"][0],
-                             ev["bwd_err"][0], ig["bwd_err"][0])
+                             ev["bwd_err"][0], ig["bwd_err"][0],
+                             par["band_bwd_err"][0],
+                             par["torchrun"]["bwd_err"][0])
     bwd["max_norm_err"] = max(bwd["max_norm_err"], dpath["bwd_err"][1],
-                              ev["bwd_err"][1], ig["bwd_err"][1])
+                              ev["bwd_err"][1], ig["bwd_err"][1],
+                              par["band_bwd_err"][1],
+                              par["torchrun"]["bwd_err"][1])
     # K1 runs on every path: once per view and once per step
     fwd["launches_by_path"]["train_step"] = bwd.pop("fwd_launches_train")
     fwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_fwd"]
@@ -3201,7 +3651,15 @@ def main() -> int:
         bench["kernel_launches"]["rasterize_fwd"]
     fwd["launches_by_path"]["eval"] = ev["counts"]["rasterize_fwd"]
     fwd["launches_by_path"]["ig2g"] = ig["counts"]["rasterize_fwd"]
+    for path, counts in (("bands", par["band_counts"]),
+                         ("nccl_step", par["nccl_counts"]),
+                         ("torchrun_train", par["torchrun_counts"]),
+                         ("viewer", vw["viewer_counts"])):
+        fwd["launches_by_path"][path] = counts["rasterize_fwd"]
+        if path != "viewer":
+            bwd["launches_by_path"][path] = counts["rasterize_bwd"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
+    fwd["bands"] = bwd["bands"] = par["bands"]
     bwd["launches_by_path"]["loop"] = loop["launches"]["rasterize_bwd"]
     bwd["launches_by_path"]["data_path_train"] = \
         dpath["train_counts"]["rasterize_bwd"]
@@ -3214,7 +3672,8 @@ def main() -> int:
         "loop": loop["launches"]["gather_rows"],
         "data_path_train": dpath["train_counts"]["gather_rows"],
         "eval": ev["counts"]["gather_rows"],
-        "ig2g": ig["counts"]["gather_rows"]}
+        "ig2g": ig["counts"]["gather_rows"],
+        "torchrun_train": par["torchrun_counts"]["gather_rows"]}
     gat["launches"] = sum(gat["launches_by_path"].values())
     gat["densify"] = [{k: d[k] for k in ("iteration", "n_before", "n_after",
                                          "ms", "gather_ms",
@@ -3225,9 +3684,10 @@ def main() -> int:
             "launches_by_path", "bound_detail", "ptxas")
     fwd_keys = keys + ("ms_cull_off", "plain_ms_small", "kernel_ms_small",
                        "full_image_px_agree", "full_image_med_agree",
-                       "full_image_contrib_agree", "ig2g_noise_max_abs_err")
+                       "full_image_contrib_agree", "ig2g_noise_max_abs_err",
+                       "bands")
     bwd_keys = keys + ("ms_cull_off", "max_norm_err", "step_ms",
-                       "card_steps_per_s")
+                       "card_steps_per_s", "bands")
     gat_keys = keys + ("wrapper_ms", "replaces_also", "probe_shape",
                        "densify")
     print(json.dumps({"kernels": [{k: fwd[k] for k in fwd_keys},

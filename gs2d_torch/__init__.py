@@ -29,7 +29,10 @@ and Temples protocols (``eval/``) and their harnesses
 (``cli/train_ig2g.py``): the SD-1.5 InstructPix2Pix UNet, VAE and CLIP
 text tower, the tokenizer, the weight loader and the editor
 (``ig2g/``), with the port's own safetensors codec
-(``utils/safetensors.py``). Entry points take a ``device`` argument that defaults to
+(``utils/safetensors.py``) — and several GPUs on ``torch.distributed``
+(``parallel/``: row bands per rank, the (gauss, data) grid, torchrun
+bring-up) and the SIBR live viewer (``render/network_gui.py``,
+``cli/view.py``). Entry points take a ``device`` argument that defaults to
 ``"cuda"``; on a CPU tensor each kernel wrapper runs its plain PyTorch
 version instead.
 """

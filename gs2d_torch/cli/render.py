@@ -5,14 +5,16 @@
 The surface of the JAX package's ``render.py`` (the reference's
 ``python render.py -m <model>``): train/test renders and vis maps under
 ``<model>/{train,test}/ours_<iteration>``, an optional ellipse-path video
-(``--render_path``, which needs cv2), and a TSDF-fused mesh with the
+(``--render_path``: the frames as PNGs and ``render_traj.avi``, an
+uncompressed AVI, under ``<model>/traj/ours_<iteration>``; the JAX CLI
+writes an mp4v file through cv2), and a TSDF-fused mesh with the
 reference's automatic parameters (depth_trunc = 2·radius, voxel =
 depth_trunc / mesh_res, sdf_trunc = 5·voxel), meshed at SH degree 0.
 Bounded fusion by default, ``--unbounded`` for the contracted variant.
 ``--device`` (default ``cuda``) picks the device.
 
-``main(argv)`` returns the iteration, the output directory and the mesh's
-path and counts.
+``main(argv)`` returns the iteration, the output directory, the video's
+path and the mesh's path and counts.
 """
 
 from __future__ import annotations
@@ -89,8 +91,9 @@ def main(argv=None) -> dict:
         frames = [r.permute(1, 2, 0).cpu().numpy()
                   for r in extractor.rgbmaps]
         traj_dir = os.path.join(args.model_path, "traj", f"ours_{iteration}")
-        os.makedirs(traj_dir, exist_ok=True)
-        create_video(frames, os.path.join(traj_dir, "render_traj.mp4"))
+        extractor.export_image(traj_dir)
+        result["video"] = os.path.join(traj_dir, "render_traj.avi")
+        create_video(frames, result["video"])
 
     if not args.skip_mesh:
         # meshing uses diffuse colour only (reference render.py:93)

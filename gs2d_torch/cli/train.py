@@ -10,8 +10,21 @@ iteration), checkpoints at ``--checkpoint_iterations`` and
 ``--start_checkpoint``. ``--device`` (default ``cuda``) picks the device;
 the tests pass ``--device cpu``. Progress is printed every 100 iterations
 (no tqdm), and TensorBoard logs where it imports. The TPU runtime knobs
-(capacities, interpret mode, data devices, multi-host) and the viewer
-flags have no counterpart here.
+(capacities, interpret mode) have no counterpart here.
+
+Several GPUs (``gs2d_torch/parallel/``): ``--data_devices N`` starts N
+local ranks, one per GPU (gloo ranks on the CPU with ``--device cpu``),
+each rendering one row band of every view; ``--multihost`` joins the
+process group that torchrun's environment names
+(``python -m torch.distributed.run --nproc_per_node G [--nnodes ...] -m
+gs2d_torch.cli.train --multihost ...``), each rank on ``cuda:LOCAL_RANK``
+uploading only its band of each view. Only the first rank writes files,
+prints and serves the viewer. Without ``-m`` the model directory is
+named from the source path and seed, so every rank agrees on it.
+
+The SIBR live viewer (``render/network_gui.py``) listens on ``--ip``:
+``--port`` (127.0.0.1:6009) unless ``--no_viewer``; a port that cannot be
+bound prints one line and training goes on without the viewer.
 
 ``main(argv)`` returns what it reported: the PSNR per test iteration and
 per 100-iteration window the host's mean ms per iteration, loss and N.
@@ -73,16 +86,118 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def add_launch_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The JAX ``train.py``'s data-device, multi-host and viewer flags."""
+    ap.add_argument("--data_devices", type=int, default=1,
+                    help="pixel-shard every view over N local ranks, one "
+                         "per GPU")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group of torchrun's environment")
+    ap.add_argument("--ip", type=str, default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=6009)
+    ap.add_argument("--no_viewer", action="store_true")
+    return ap
+
+
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    args = add_launch_flags(build_parser()).parse_args(argv)
     import torch
+    import torch.distributed as dist
+
+    from ..parallel import multihost as mh
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device; "
                            "pass --device cpu to train on the CPU")
-    if not args.model_path:
-        args.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
-    os.makedirs(args.model_path, exist_ok=True)
+    if args.data_devices < 1:
+        raise ValueError(f"--data_devices {args.data_devices}")
+    if args.multihost:
+        mh.initialize_distributed(backend=mh.default_backend(device.type))
+        if not dist.is_initialized():
+            raise RuntimeError("--multihost, but no launcher environment "
+                               "(RANK, WORLD_SIZE, MASTER_ADDR, "
+                               "MASTER_PORT): start it with torchrun")
+        return _run(args, mh.rank_device(device.type), dist.group.WORLD)
+    if args.data_devices > 1:
+        if device.type == "cuda" \
+                and args.data_devices > torch.cuda.device_count():
+            raise ValueError(
+                f"--data_devices {args.data_devices}, but torch finds "
+                f"{torch.cuda.device_count()} CUDA devices")
+        return _spawn_local_ranks(args)
+    return _run(args, device, None)
+
+
+def _model_dir(args) -> str:
+    """The model directory: ``-m``, else one that every rank of a run
+    names alike (from the source path and seed, as the JAX ``train.py``'s
+    multi-host path does), else a random one."""
+    if args.model_path:
+        return args.model_path
+    if args.multihost or args.data_devices > 1:
+        tag = uuid.uuid5(uuid.NAMESPACE_URL,
+                         f"{args.source_path}|{args.seed}")
+    else:
+        tag = uuid.uuid4()
+    return os.path.join("./output", str(tag)[:10])
+
+
+def _spawn_local_ranks(args) -> dict:
+    """Train on ``args.data_devices`` spawned ranks of one process group
+    (NCCL on the card, gloo on the CPU) → the first rank's result."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    args.model_path = _model_dir(args)
+    n = args.data_devices
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    result = None
+    with tempfile.TemporaryDirectory(prefix="gs2d_train_") as tmp:
+        procs = mp.start_processes(
+            _rank_main, args=(n, args, os.path.join(tmp, "store"), results),
+            nprocs=n, join=False, start_method="spawn")
+        # read the result as it comes: a rank blocks on a full pipe
+        while not procs.join(timeout=1):
+            if result is None and not results.empty():
+                result = results.get()
+    return result if result is not None else results.get()
+
+
+def _rank_main(rank, n, args, store, results):
+    """One local rank of ``--data_devices``."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import multihost as mh
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = mh.rank_device(torch.device(args.device).type)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        # the ranks share the host's cores; more threads than that each
+        # ran a 2-rank CPU run several times slower
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    dist.init_process_group(mh.default_backend(device.type),
+                            init_method=f"file://{store}", rank=rank,
+                            world_size=n, timeout=mh.TIMEOUT)
+    try:
+        result = _run(args, device, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        results.put(result)
+
+
+def _run(args, device, group) -> dict:
+    """The training run of this process (one rank of ``group``, if any)."""
+    import torch
+
+    from ..parallel.multihost import is_main_process
+    args.model_path = _model_dir(args)
+    main_proc = group is None or is_main_process()
+    if main_proc:
+        os.makedirs(args.model_path, exist_ok=True)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
@@ -95,8 +210,9 @@ def main(argv=None) -> dict:
     opt = OptimizationParams(**{f: getattr(args, f) for f in OPT_FLAGS})
     pipe = PipelineParams(depth_ratio=args.depth_ratio)
     rt = RuntimeParams(seed=args.seed)
-    save_cfg_args(os.path.join(args.model_path, "cfg_args.json"), model,
-                  pipe, opt)
+    if main_proc:
+        save_cfg_args(os.path.join(args.model_path, "cfg_args.json"), model,
+                      pipe, opt)
     args.save_iterations.append(opt.iterations)
 
     from ..ops.ssim import psnr as psnr_fn
@@ -104,16 +220,18 @@ def main(argv=None) -> dict:
     from ..train.loop import train
 
     tb_writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-        tb_writer = SummaryWriter(args.model_path)
-    except ImportError:
-        print("Tensorboard not available: not logging progress")
+    if main_proc:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            tb_writer = SummaryWriter(args.model_path)
+        except ImportError:
+            print("Tensorboard not available: not logging progress")
 
     result = {"model_path": args.model_path, "psnr": {}, "windows": []}
     # the loop logs every 10 iterations, timed from its first iteration
     last = {"iteration": None, "elapsed_s": 0.0}
-    run_log = open(args.run_log, "a", buffering=1) if args.run_log else None
+    run_log = (open(args.run_log, "a", buffering=1)
+               if args.run_log and main_proc else None)
 
     def log_fn(iteration, info):
         if run_log is not None:
@@ -175,6 +293,30 @@ def main(argv=None) -> dict:
         if tb_writer is not None:
             tb_writer.add_scalar("test/psnr", mean, iteration)
 
+    gui = _viewer(args, device) if main_proc and not args.no_viewer else None
+
+    @torch.no_grad()
+    def viewer_fn(iteration, ts, ema):
+        """The reference's train.py:146-168: serve the connected client's
+        frames until it asks to train on (or the run is over and it does
+        not keep the viewer alive); no client, no wait."""
+        from .view import serve_frame
+        if gui.conn is None:
+            gui.try_connect(model.render_items)
+        while gui.conn is not None:
+            try:
+                _, do_training, keep_alive = serve_frame(
+                    gui, ts.gaussians, model, pipe, bg, device,
+                    {"#": int(ts.gaussians.params.xyz.shape[0]),
+                     "loss": ema["loss"]})
+                if do_training and (iteration < opt.iterations
+                                    or not keep_alive):
+                    break
+            except Exception as e:             # noqa: BLE001 - reported
+                print(f"viewer connection dropped: {type(e).__name__}: "
+                      f"{e}", flush=True)
+                gui.disconnect()
+
     try:
         train(model, opt, pipe, rt,
               test_iterations=args.test_iterations,
@@ -182,14 +324,34 @@ def main(argv=None) -> dict:
               checkpoint_iterations=args.checkpoint_iterations,
               start_checkpoint=args.start_checkpoint,
               log_fn=log_fn, report_fn=report_fn,
-              profile_dir=args.profile, device=device)
+              profile_dir=args.profile,
+              viewer_fn=viewer_fn if gui is not None else None,
+              device=device, group=group, multihost=args.multihost)
     finally:
         if run_log is not None:
             run_log.close()
         if tb_writer is not None:
             tb_writer.close()
-    print("\nTraining complete.")
+        if gui is not None:
+            gui.close()
+    if main_proc:
+        print("\nTraining complete.")
     return result
+
+
+def _viewer(args, device):
+    """The viewer's listener on ``--ip``:``--port``, or None (one line
+    printed) when the port cannot be bound."""
+    from ..render.network_gui import NetworkGUI
+    gui = NetworkGUI(device=device)
+    try:
+        gui.init(args.ip, args.port)
+    except OSError as e:
+        gui.close()
+        print(f"viewer: cannot listen on {args.ip}:{args.port} ({e}); "
+              "training without it", flush=True)
+        return None
+    return gui
 
 
 if __name__ == "__main__":

@@ -117,8 +117,8 @@ rasterize_bwd_kernel(const float* __restrict__ packed,
                      const float* __restrict__ cot,
                      const int* __restrict__ med_idx,
                      const int* __restrict__ n_contrib, int num_gaussians,
-                     int num_slots, int width, int height, int ntx,
-                     float* __restrict__ d_slots) {
+                     int num_slots, int width, int height, int row0,
+                     int ntx, float* __restrict__ d_slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   float (*part)[NUM_WARPS][DENTRY_F] =
       reinterpret_cast<float (*)[NUM_WARPS][DENTRY_F]>(smem);
@@ -136,7 +136,7 @@ rasterize_bwd_kernel(const float* __restrict__ packed,
   // a warp is one pixel row of the tile
   const float row_x = (float)((t % ntx) * TILE_W);
   const float px = row_x + (float)lane;
-  const float py = (float)((t / ntx) * TILE_H + warp);
+  const float py = (float)(row0 + (t / ntx) * TILE_H + warp);
   const int start = tile_start[t];
   const int count = max(0, min(tile_count[t], num_slots - start));
   const int field = butterfly_field(lane);
@@ -352,13 +352,16 @@ cudaError_t allow_shared_memory() {
 // Plain C entry point for ctypes. Launches on `stream` and returns
 // cudaGetLastError(), so a refused launch reaches the caller; a packed
 // table off a 16-byte boundary is refused (cudaErrorMisalignedAddress).
+// The tiles cover rows [row0, row0 + height) of an image, as in
+// rasterize_fwd.cu.
 extern "C" int gs2d_rasterize_bwd(const float* packed, const int* gid,
                                   const int* tile_start,
                                   const int* tile_count, const float* out,
                                   const float* cot, const int* med_idx,
                                   const int* n_contrib, int num_gaussians,
                                   int num_slots, int num_tiles, int width,
-                                  int height, float* d_slots, void* stream) {
+                                  int height, int row0, float* d_slots,
+                                  void* stream) {
   if (!records_aligned(packed)) return (int)cudaErrorMisalignedAddress;
   const cudaError_t err = allow_shared_memory();
   if (err != cudaSuccess) return (int)err;
@@ -366,6 +369,6 @@ extern "C" int gs2d_rasterize_bwd(const float* packed, const int* gid,
   rasterize_bwd_kernel<<<num_tiles, TILE_PX, SMEM_BYTES,
                          (cudaStream_t)stream>>>(
       packed, gid, tile_start, tile_count, out, cot, med_idx, n_contrib,
-      num_gaussians, num_slots, width, height, ntx, d_slots);
+      num_gaussians, num_slots, width, height, row0, ntx, d_slots);
   return (int)cudaGetLastError();
 }

@@ -61,7 +61,7 @@ rasterize_fwd_kernel(const float* __restrict__ packed,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
                      int num_gaussians, int num_slots, int width, int height,
-                     int ntx, float* __restrict__ out,
+                     int row0, int ntx, float* __restrict__ out,
                      int* __restrict__ med_idx, int* __restrict__ n_contrib) {
   __shared__ Record rec[2][BATCH];
   __shared__ float radius[2][BATCH];
@@ -72,7 +72,7 @@ rasterize_fwd_kernel(const float* __restrict__ packed,
   const int ix = (t % ntx) * TILE_W + lane;
   const int iy = (t / ntx) * TILE_H + tid / TILE_W;
   const float px = (float)ix;
-  const float py = (float)iy;
+  const float py = (float)(row0 + iy);   // the image's row: see row0 below
   const float row_x = (float)((t % ntx) * TILE_W);
   const int start = tile_start[t];
   const int count = max(0, min(tile_count[t], num_slots - start));
@@ -187,16 +187,20 @@ rasterize_fwd_kernel(const float* __restrict__ packed,
 // Plain C entry point for ctypes. Launches on `stream` and returns
 // cudaGetLastError(), so a refused launch reaches the caller; a packed
 // table off a 16-byte boundary is refused (cudaErrorMisalignedAddress).
+// The tiles cover rows [row0, row0 + height) of an image: a row band of
+// several GPUs' render evaluates p = A + x·B + y·C at the image's own y,
+// so a band's pixels are the whole view's bit for bit.
 extern "C" int gs2d_rasterize_fwd(const float* packed, const int* gid,
                                   const int* tile_start,
                                   const int* tile_count, int num_gaussians,
                                   int num_slots, int num_tiles, int width,
-                                  int height, float* out, int* med_idx,
-                                  int* n_contrib, void* stream) {
+                                  int height, int row0, float* out,
+                                  int* med_idx, int* n_contrib,
+                                  void* stream) {
   const int ntx = (width + TILE_W - 1) / TILE_W;
   if (!records_aligned(packed)) return (int)cudaErrorMisalignedAddress;
   rasterize_fwd_kernel<<<num_tiles, TILE_PX, 0, (cudaStream_t)stream>>>(
       packed, gid, tile_start, tile_count, num_gaussians, num_slots, width,
-      height, ntx, out, med_idx, n_contrib);
+      height, row0, ntx, out, med_idx, n_contrib);
   return (int)cudaGetLastError();
 }

@@ -68,12 +68,14 @@ class _Composite(torch.autograd.Function):
     """packed records (N, 24) → tile images; backward through K2."""
 
     @staticmethod
-    def forward(ctx, packed, bins: BinningOut, width: int, height: int):
+    def forward(ctx, packed, bins: BinningOut, width: int, height: int,
+                row0: int):
         out, med_idx, n_contrib = rasterize_fwd(
-            packed, bins.gid, bins.tile_start, bins.tile_count, width, height)
+            packed, bins.gid, bins.tile_start, bins.tile_count, width, height,
+            row0)
         ctx.save_for_backward(packed, out, med_idx, n_contrib)
         ctx.bins = bins
-        ctx.size = (width, height)
+        ctx.size = (width, height, row0)
         ctx.mark_non_differentiable(med_idx, n_contrib)
         return out, med_idx, n_contrib
 
@@ -85,11 +87,11 @@ class _Composite(torch.autograd.Function):
                                 bins.tile_count, out, g_out.contiguous(),
                                 med_idx, n_contrib, *ctx.size)
         return (reduce_slot_grads(d_slots, bins, packed.shape[0]), None,
-                None, None)
+                None, None, None)
 
 
 def bin_preprocessed(pre: PreprocessOut, width: int, height: int,
-                     cull: bool = True) -> BinningOut:
+                     cull: bool = True, row0: int = 0) -> BinningOut:
     """``bin_gaussians`` on preprocess output, with the interval cull on
     (the JAX package's ``RasterizeConfig.cull`` default) unless ``cull``
     is False: the cull reads (A, B, C) and rho2max, detached."""
@@ -97,11 +99,12 @@ def bin_preprocessed(pre: PreprocessOut, width: int, height: int,
         if cull else None
     return bin_gaussians(pre.center2d, pre.extent, pre.depth, pre.visible,
                          width, height, cull_abc=cull_abc,
-                         rho2max=pre.rho2max.detach() if cull else None)
+                         rho2max=pre.rho2max.detach() if cull else None,
+                         row0=row0)
 
 
 def rasterize(pre: PreprocessOut, width: int, height: int,
-              cull: bool = True):
+              cull: bool = True, row0: int = 0):
     """Rasterize preprocessed Gaussians.
 
     Returns (out, aux): out is (NUM_OUT, height, width) float32 (rgb
@@ -111,11 +114,15 @@ def rasterize(pre: PreprocessOut, width: int, height: int,
     indices are those of the culled lists. Differentiable with respect to
     every field of ``pre`` that the records carry. ``cull`` is the
     counterpart of ``RasterizeConfig.cull`` (``bin_preprocessed``); it
-    changes which pairs the kernels see, not the image.
+    changes which pairs the kernels see, not the image. With ``row0`` (a
+    multiple of TILE_H) the result is rows [row0, row0 + height) of the
+    image whose rows ``pre`` was made for, bit for bit: binning, the cull
+    and both kernels work in the image's own rows (a row band of several
+    GPUs' render, ``parallel/data_parallel.py``).
     """
-    bins = bin_preprocessed(pre, width, height, cull)
+    bins = bin_preprocessed(pre, width, height, cull, row0)
     out_tiles, med_idx, n_contrib = _Composite.apply(
-        pack_entries(pre), bins, width, height)
+        pack_entries(pre), bins, width, height, row0)
     return untile(out_tiles, width, height), {
         "num_pairs": bins.num_pairs, "med_idx": med_idx,
         "n_contrib": n_contrib}

@@ -46,13 +46,15 @@ class BinningOut(NamedTuple):
 
 
 def tile_rects(center2d: torch.Tensor, extent: torch.Tensor,
-               width: int, height: int):
+               width: int, height: int, row0: int = 0):
     """Half-open tile rectangles [tx0, tx1) × [ty0, ty1), int64, clipped
-    to the tile grid. Clipping happens in float before the conversion, so
+    to the tile grid of rows [row0, row0 + height), rows counted from that
+    grid's first. Clipping happens in float before the conversion, so
     huge or infinite extents clamp as the JAX package's saturating cast
     does."""
     ntx = cdiv(width, TILE_W)
     nty = cdiv(height, TILE_H)
+    ty_base = row0 // TILE_H
     cx, cy = center2d[:, 0], center2d[:, 1]
     ex, ey = extent[:, 0], extent[:, 1]
 
@@ -61,8 +63,8 @@ def tile_rects(center2d: torch.Tensor, extent: torch.Tensor,
 
     tx0 = fl((cx - ex) / TILE_W, ntx)
     tx1 = fl(torch.floor((cx + ex) / TILE_W) + 1, ntx)
-    ty0 = fl((cy - ey) / TILE_H, nty)
-    ty1 = fl(torch.floor((cy + ey) / TILE_H) + 1, nty)
+    ty0 = fl(torch.floor((cy - ey) / TILE_H) - ty_base, nty)
+    ty1 = fl(torch.floor((cy + ey) / TILE_H) + 1 - ty_base, nty)
     return tx0, tx1, ty0, ty1
 
 
@@ -209,7 +211,8 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
                   depth: torch.Tensor, visible: torch.Tensor,
                   width: int, height: int,
                   cull_abc: Optional[Tuple[torch.Tensor, ...]] = None,
-                  rho2max: Optional[torch.Tensor] = None) -> BinningOut:
+                  rho2max: Optional[torch.Tensor] = None,
+                  row0: int = 0) -> BinningOut:
     """Bin Gaussians into per-tile depth-ordered slot lists.
 
     With ``cull_abc=(A, B, C)`` and ``rho2max`` (from preprocess, detached)
@@ -217,7 +220,13 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
     support interval (``row_intervals``): the interval cull, which drops
     only pairs whose alpha is below the cutoff on every pixel of the tile
     (``tests/test_torch_cull.py``), so it changes no image. ``None`` bins
-    every tile of each rectangle."""
+    every tile of each rectangle.
+
+    ``row0`` (a multiple of TILE_H) bins only the tiles of rows [row0,
+    row0 + height) of the image the fields were made for: each of those
+    tiles gets the list it gets in the whole image's binning."""
+    if row0 % TILE_H:
+        raise ValueError(f"row0 {row0} is not a multiple of {TILE_H}")
     dev = center2d.device
     N = center2d.shape[0]
     ntx = cdiv(width, TILE_W)
@@ -226,7 +235,7 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
     depth_key = torch.where(visible, depth,
                             torch.full_like(depth, float("inf")))
     order = torch.argsort(depth_key, stable=True)        # front → back
-    tx0, tx1, ty0, ty1 = tile_rects(center2d, extent, width, height)
+    tx0, tx1, ty0, ty1 = tile_rects(center2d, extent, width, height, row0)
     rows = torch.where(visible, torch.clamp(ty1 - ty0, min=0), 0)[order]
 
     # level 1: (gaussian, tile row) entries, Gaussians in depth order
@@ -240,7 +249,7 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
         jx0, jx1 = tx0[g_r], tx1[g_r]
     else:
         jx0, jx1 = row_intervals(cull_abc, rho2max, center2d, tx0, tx1,
-                                 g_r, ty_r, height)
+                                 g_r, ty_r + row0 // TILE_H, row0 + height)
     w = torch.clamp(jx1 - jx0, min=0)                    # tiles per row
     counts = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(
         0, rank_r, w)

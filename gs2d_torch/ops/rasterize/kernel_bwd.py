@@ -61,7 +61,7 @@ def _kernel():
     """The C entry point of csrc/rasterize_bwd.cu, built at first use."""
     fn = cuda_build.load("rasterize_bwd").gs2d_rasterize_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 2)
     return fn
 
@@ -69,11 +69,12 @@ def _kernel():
 def rasterize_bwd(packed: torch.Tensor, gid: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
                   out: torch.Tensor, cot: torch.Tensor, med_idx: torch.Tensor,
-                  n_contrib: torch.Tensor, width: int, height: int):
+                  n_contrib: torch.Tensor, width: int, height: int,
+                  row0: int = 0):
     """Gradient of every slot's record.
 
-    packed (N, 24), gid (P,), tile_start/tile_count (T,) as for
-    ``rasterize_fwd``; out (T, 15, 512) f32, med_idx and n_contrib
+    packed (N, 24), gid (P,), tile_start/tile_count (T,) and ``row0`` as
+    for ``rasterize_fwd``; out (T, 15, 512) f32, med_idx and n_contrib
     (T, 512) int32 from it; cot (T, 15, 512) f32 the cotangent of out.
     Returns d_slots (P, 22) f32."""
     T = _check_bwd_inputs(packed, gid, tile_start, tile_count, out, cot,
@@ -81,7 +82,7 @@ def rasterize_bwd(packed: torch.Tensor, gid: torch.Tensor,
     if packed.device.type == "cpu":
         return rasterize_bwd_reference(packed, gid, tile_start, tile_count,
                                        out, cot, med_idx, n_contrib, width,
-                                       height)
+                                       height, row0)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_bwd runs on cuda or cpu tensors, got "
                          f"{packed.device}")
@@ -98,7 +99,8 @@ def rasterize_bwd(packed: torch.Tensor, gid: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(x.data_ptr() for x in args), packed.shape[0],
-                 gid.shape[0], T, width, height, d_slots.data_ptr(), stream)
+                 gid.shape[0], T, width, height, row0, d_slots.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"rasterize_bwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -113,8 +115,8 @@ def rasterize_bwd_reference(packed: torch.Tensor, gid: torch.Tensor,
                             tile_start: torch.Tensor, tile_count: torch.Tensor,
                             out: torch.Tensor, cot: torch.Tensor,
                             med_idx: torch.Tensor, n_contrib: torch.Tensor,
-                            width: int, height: int, tiles=None,
-                            return_composited: bool = False):
+                            width: int, height: int, row0: int = 0,
+                            tiles=None, return_composited: bool = False):
     """Plain PyTorch version of ``rasterize_bwd``, one tile at a time.
 
     Per tile the (records × pixels) terms are vectorized, in the kernel's
@@ -148,7 +150,8 @@ def rasterize_bwd_reference(packed: torch.Tensor, gid: torch.Tensor,
         if lim <= 0:
             continue
         px = ((t % ntx) * TILE_W + lane % TILE_W).to(torch.float32)[None]
-        py = ((t // ntx) * TILE_H + lane // TILE_W).to(torch.float32)[None]
+        py = (row0 + (t // ntx) * TILE_H + lane // TILE_W).to(
+            torch.float32)[None]
         gi = gid[s:s + lim].long()
         ok_id = (gi >= 0) & (gi < packed.shape[0])
         e = torch.where(ok_id[:, None], packed[torch.where(ok_id, gi, 0)],

@@ -62,23 +62,25 @@ def _kernel():
     """The C entry point of csrc/rasterize_fwd.cu, built at first use."""
     fn = cuda_build.load("rasterize_fwd").gs2d_rasterize_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 4)
     return fn
 
 
 def rasterize_fwd(packed: torch.Tensor, gid: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
-                  width: int, height: int):
+                  width: int, height: int, row0: int = 0):
     """Composite every tile's slot list front to back.
 
     packed (N, 24) f32 records; gid (P,) int32 slot → record; tile_start,
-    tile_count (T,) int32 slot ranges. Returns (out (T, 15, 512) f32,
+    tile_count (T,) int32 slot ranges of the tiles of rows [row0, row0 +
+    height) of the image (``row0`` > 0: a row band, whose pixels are
+    evaluated at the image's own rows). Returns (out (T, 15, 512) f32,
     med_idx (T, 512) int32, n_contrib (T, 512) int32)."""
     T = _check_inputs(packed, gid, tile_start, tile_count, width, height)
     if packed.device.type == "cpu":
         return rasterize_fwd_reference(packed, gid, tile_start, tile_count,
-                                       width, height)
+                                       width, height, row0)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_fwd runs on cuda or cpu tensors, got "
                          f"{packed.device}")
@@ -97,7 +99,7 @@ def rasterize_fwd(packed: torch.Tensor, gid: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(packed.data_ptr(), gid.data_ptr(), tile_start.data_ptr(),
                  tile_count.data_ptr(), packed.shape[0], gid.shape[0], T,
-                 width, height, out.data_ptr(), med_idx.data_ptr(),
+                 width, height, row0, out.data_ptr(), med_idx.data_ptr(),
                  n_contrib.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rasterize_fwd kernel launch failed: CUDA error "
@@ -111,8 +113,8 @@ rasterize_fwd.launches = 0   # kernel launches since the last reset
 
 def rasterize_fwd_reference(packed: torch.Tensor, gid: torch.Tensor,
                             tile_start: torch.Tensor, tile_count: torch.Tensor,
-                            width: int, height: int, tiles=None,
-                            return_composited: bool = False):
+                            width: int, height: int, row0: int = 0,
+                            tiles=None, return_composited: bool = False):
     """Plain PyTorch version of ``rasterize_fwd``, one tile at a time.
 
     Per tile the (records × pixels) geometry is vectorized; transmittance
@@ -147,7 +149,7 @@ def rasterize_fwd_reference(packed: torch.Tensor, gid: torch.Tensor,
         iy = (t // ntx) * TILE_H + lane // TILE_W
         inside = ((ix < width) & (iy < height))[None]
         px = ix.to(torch.float32)[None]
-        py = iy.to(torch.float32)[None]
+        py = (row0 + iy).to(torch.float32)[None]
         g = gid[s:s + c].long()
         ok_id = (g >= 0) & (g < packed.shape[0])
         e = torch.where(ok_id[:, None], packed[torch.where(ok_id, g, 0)],

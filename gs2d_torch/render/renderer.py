@@ -21,6 +21,8 @@ from ..models.gaussians import GaussianState, activated, sh_degree_mask
 from ..ops.depth_utils import depth_to_normal
 from ..ops.rasterize.api import rasterize
 from ..ops.rasterize.preprocess import PreprocessOut, preprocess
+from ..parallel.data_parallel import rasterize_sharded
+from ..parallel.gaussian_parallel import gather_records, has_gauss_axis
 from ..scene.cameras import Camera
 
 
@@ -95,13 +97,20 @@ def render(camera: Camera, state: GaussianState, bg: torch.Tensor, *,
            noise: Optional[torch.Tensor] = None,
            screen_offsets: Optional[torch.Tensor] = None,
            depth_ratio: float = 0.0, cull: bool = True,
-           device="cuda") -> dict:
+           device="cuda", group=None, grid=None) -> dict:
     """Render ``state`` from ``camera`` on ``device`` (default ``"cuda"``).
 
     Every tensor input must already lie on ``device``; a CPU render is
     asked for with ``device="cpu"`` and runs the kernels' plain versions.
     ``cull`` is the binning's interval cull (``rasterize``), on by
     default as in the JAX package.
+
+    With a process ``group`` each of its ranks rasterizes one row band
+    and every rank gets the whole image (``parallel/data_parallel.py``);
+    with a ``grid`` (``parallel/gaussian_parallel.py``) ``state`` is this
+    rank's shard, whose records are gathered before binning, and the
+    bands span the whole grid. The bridge runs on the whole image (its
+    depth normals need every row); ``radii`` are the state's own.
     """
     device = torch.device(device)
     tensors = [("camera", camera.world_view), ("state", state.params.xyz),
@@ -114,5 +123,16 @@ def render(camera: Camera, state: GaussianState, bg: torch.Tensor, *,
                   scaling_modifier=scaling_modifier,
                   override_color=override_color, noise=noise,
                   screen_offsets=screen_offsets)
-    out, aux = rasterize(pre, camera.width, camera.height, cull=cull)
+    records = pre
+    if grid is not None:
+        if group is not None:
+            raise ValueError("render takes a group or a grid, not both")
+        group = grid.group
+        if has_gauss_axis(grid):
+            records = gather_records(pre, grid)
+    if group is None:
+        out, aux = rasterize(pre, camera.width, camera.height, cull=cull)
+    else:
+        out, aux = rasterize_sharded(records, camera.width, camera.height,
+                                     group, cull=cull)
     return bridge(camera, pre, out, aux, bg, depth_ratio)

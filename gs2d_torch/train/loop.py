@@ -8,12 +8,20 @@ cadence (every ``densification_interval`` iterations inside
 background), PLY saves, checkpoints and resume, EMA progress logging.
 
 Tensors resize under densification, so the JAX loop's capacity growth
-and pairs-capacity escalation and re-tightening have no counterpart; the
-multi-host path is not ported yet (ROADMAP queue 1, `parallel/`).
+and pairs-capacity escalation and re-tightening have no counterpart.
+
+With a process ``group`` (``gs2d_tpu/train/loop.py:40-54``, ``:125-131``;
+``parallel/multihost.py``) every rank runs the same data-parallel steps
+and densify draws on the same seeded camera order, starting from the
+first rank's state; every densify checks that the ranks still hold the
+same state; only the first rank has side effects (PLYs, checkpoints, the
+callbacks). With ``multihost`` each rank uploads only its row band of a
+view and the bands are assembled on every rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import random
 import time
@@ -25,8 +33,11 @@ from ..config import (ModelParams, OptimizationParams, PipelineParams,
                       RuntimeParams)
 from ..models.densify import densify_and_prune, reset_opacity
 from ..models.io import load_checkpoint, save_checkpoint
+from ..parallel.data_parallel import broadcast_from_main, check_replicas
+from ..parallel.multihost import (global_gt_from_local_rows, is_main_process,
+                                  local_row_range)
 from ..scene.scene import Scene
-from ..train.optim import init_adam
+from ..train.optim import FIELDS, init_adam
 from ..train.step import TrainState, make_train_step
 
 
@@ -40,7 +51,7 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
           report_fn: Optional[Callable] = None,
           profile_dir: Optional[str] = None,
           viewer_fn: Optional[Callable] = None,
-          device="cuda"):
+          device="cuda", group=None, multihost: bool = False):
     """Train on ``device`` (default ``"cuda"``) → (TrainState, scene).
 
     With ``scene=None`` the loop builds ``Scene(model, seed=rt.seed,
@@ -54,10 +65,17 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
     ``report_fn(iteration, ts, scene)`` runs at ``test_iterations``;
     ``profile_dir`` receives a ``torch.profiler`` trace of iterations
     50–60; ``viewer_fn(iteration, ts, ema)`` runs after every iteration.
+    With a ``group`` they run on its first rank only, as do the saves.
     """
     device = torch.device(device)
+    if multihost and group is None:
+        raise ValueError("multihost training needs a process group")
+    io_ok = group is None or is_main_process()
     if scene is None:
-        scene = Scene(model, seed=rt.seed, device=device)
+        # only the first rank writes the scene's files (input.ply,
+        # cameras.json)
+        scene = Scene(model if io_ok else dataclasses.replace(
+            model, model_path=""), seed=rt.seed, device=device)
     if start_checkpoint:
         gaussians, opt_state, first_iter, _ = load_checkpoint(
             start_checkpoint, device=device)
@@ -74,8 +92,11 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
         raise ValueError("no training cameras")
     step = make_train_step(opt, max_sh_degree=model.sh_degree,
                            spatial_lr_scale=spatial_lr_scale,
-                           depth_ratio=pipe.depth_ratio, device=device)
+                           depth_ratio=pipe.depth_ratio, device=device,
+                           group=group)
     ts = TrainState(gaussians=gaussians, opt=opt_state)
+    if group is not None:
+        broadcast_from_main(_replicated(ts), group)
     # split noise; the JAX loop's key is likewise seeded afresh on resume
     gen = torch.Generator(device=device).manual_seed(rt.seed)
 
@@ -88,7 +109,7 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
     t_start = time.time()
 
     for iteration in range(first_iter + 1, opt.iterations + 1):
-        if profile_dir and iteration == 50:
+        if profile_dir and io_ok and iteration == 50:
             prof = _start_profiler(device)
         if prof is not None and iteration == 60:
             prof.stop()
@@ -103,8 +124,16 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
         # ground truth stays on the device across epochs, up to the budget
         gt = gt_cache.get(cam_idx)
         if gt is None:
-            gt = torch.as_tensor(cam_data.image, dtype=torch.float32,
-                                 device=device)
+            if multihost:
+                # rank-local IO: upload only this rank's row band
+                h = cam_data.image.shape[1]
+                r0, r1 = local_row_range(h, group)
+                gt = global_gt_from_local_rows(torch.as_tensor(
+                    cam_data.image[:, r0:r1], dtype=torch.float32,
+                    device=device), h, group)
+            else:
+                gt = torch.as_tensor(cam_data.image, dtype=torch.float32,
+                                     device=device)
             nbytes = gt.numel() * gt.element_size()
             if gt_cache_bytes + nbytes <= rt.gt_cache_budget:
                 gt_cache[cam_idx] = gt
@@ -123,6 +152,9 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
                     opt.opacity_cull, scene.cameras_extent, size_threshold,
                     opt.percent_dense, generator=gen)
                 ts = TrainState(gaussians=gs_new, opt=opt_new)
+                if group is not None:
+                    check_replicas(_replicated(ts), group,
+                                   f"the state after densify {iteration}")
             if (iteration % opt.opacity_reset_interval == 0
                     or (model.white_background
                         and iteration == opt.densify_from_iter)):
@@ -137,7 +169,7 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
             ema["loss"] = 0.4 * loss + 0.6 * ema["loss"]
             ema["dist"] = 0.4 * dist + 0.6 * ema["dist"]
             ema["normal"] = 0.4 * normal + 0.6 * ema["normal"]
-            if log_fn:
+            if log_fn and io_ok:
                 rec = {"loss": ema["loss"], "dist": ema["dist"],
                        "normal": ema["normal"],
                        "points": int(metrics["num_points"]),
@@ -146,6 +178,8 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
                     rec["peak_gib"] = \
                         torch.cuda.max_memory_allocated(device) / 2**30
                 log_fn(iteration, rec)
+        if not io_ok:
+            continue
         if report_fn and iteration in test_iterations:
             report_fn(iteration, ts, scene)
         if iteration in save_iterations and scene.model_path:
@@ -160,6 +194,15 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
     if prof is not None:
         prof.stop()
     return ts, scene
+
+
+def _replicated(ts: TrainState) -> list:
+    """The tensors every rank of a data-parallel run holds alike."""
+    g = ts.gaussians
+    return ([getattr(g.params, f) for f in FIELDS]
+            + [getattr(ts.opt.mu, f) for f in FIELDS]
+            + [getattr(ts.opt.nu, f) for f in FIELDS]
+            + [g.max_radii2d, g.grad_accum, g.denom])
 
 
 def _start_profiler(device: torch.device):

@@ -11,8 +11,17 @@ densification statistics::
 
 The screen-space densification gradient is the gradient of all-zeros
 screen offsets (``preprocess.py``), in place of the reference's
-retain_grad() dummy. The JAX step's capacities, overflow gate and mesh
-have no counterpart: the port's slot lists are as long as the scene needs.
+retain_grad() dummy. The JAX step's capacities and overflow gate have no
+counterpart: the port's slot lists are as long as the scene needs.
+
+The JAX step's ``mesh`` is a process ``group`` (data-parallel: every rank
+holds the whole state, renders one row band, computes the whole image's
+loss and sums its band's gradients with the others') or a ``grid``
+(``parallel/gaussian_parallel.py``: a rank holds one shard of the state,
+the record gradients go back to their owners, and the shard's gradients
+are summed over the ranks that hold it). Adam then runs on what the rank
+holds, and the densification statistics take the norm of the *summed*
+screen gradient.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from ..config import OptimizationParams
 from ..models.densify import add_densification_stats
 from ..models.gaussians import GaussianParams, GaussianState
 from ..ops.ssim import l1_loss, ssim
+from ..parallel.data_parallel import all_reduce_sum
+from ..parallel.gaussian_parallel import has_gauss_axis
 from ..render.renderer import render
 from ..scene.cameras import Camera
 from ..utils.general import expon_lr
@@ -60,13 +71,14 @@ def loss_and_grads(state: GaussianState, camera: Camera,
                    gt_image: torch.Tensor, iteration: int, bg: torch.Tensor,
                    opt_cfg: OptimizationParams, *, max_sh_degree: int = 3,
                    depth_ratio: float = 0.0, cull: bool = True,
-                   device="cuda"):
+                   device="cuda", group=None, grid=None):
     """The step's loss and its gradients, at ``state.active_sh_degree``.
 
     Returns (total, terms, grads, screen_grads, pkg): the loss terms of
     ``compute_losses``, the gradient of every parameter field as a
     ``GaussianParams``, the (N, 2) pixel-unit gradient of the screen
-    offsets, and the render's output dict."""
+    offsets, and the render's output dict. With a ``group`` or ``grid``
+    (``render``) the gradients are this rank's share, before the sum."""
     leaves = {f: getattr(state.params, f).detach().requires_grad_()
               for f in FIELDS}
     offsets = torch.zeros((state.params.xyz.shape[0], 2),
@@ -75,7 +87,8 @@ def loss_and_grads(state: GaussianState, camera: Camera,
     pkg = render(camera, dataclasses.replace(
         state, params=GaussianParams(**leaves)), bg,
         max_sh_degree=max_sh_degree, screen_offsets=offsets,
-        depth_ratio=depth_ratio, cull=cull, device=device)
+        depth_ratio=depth_ratio, cull=cull, device=device, group=group,
+        grid=grid)
     total, terms = compute_losses(pkg, gt_image, iteration, opt_cfg)
     grads = torch.autograd.grad(total, list(leaves.values()) + [offsets])
     return (total.detach(), {k: v.detach() for k, v in terms.items()},
@@ -95,12 +108,21 @@ def apply_update(state: GaussianState, opt: AdamState, grads: GaussianParams,
 
 def make_train_step(opt_cfg: OptimizationParams, *, max_sh_degree: int = 3,
                     spatial_lr_scale: float = 1.0, depth_ratio: float = 0.0,
-                    cull: bool = True, device="cuda"):
+                    cull: bool = True, device="cuda", group=None, grid=None):
     """Builds ``train_step(ts, camera, gt_image, iteration, bg,
     lr_iteration=None) -> (TrainState, metrics)`` on ``device`` (default
     ``"cuda"``); every tensor it is given must lie there. ``cull`` is the
-    render's interval cull, on by default as in the JAX step."""
+    render's interval cull, on by default as in the JAX step.
+
+    With a process ``group``, ``ts`` is the whole state on every rank and
+    stays the same on every rank; with a ``grid``, ``ts`` is this rank's
+    shard (``gaussian_parallel.shard_state``). ``gt_image`` is the whole
+    view on every rank."""
     device = torch.device(device)
+    # the ranks over which a rank's parameter gradients are summed
+    reduce_group = group
+    if grid is not None:
+        reduce_group = grid.data_group if has_gauss_axis(grid) else grid.group
 
     def lr_for(iteration: int) -> float:
         return expon_lr(iteration, opt_cfg.position_lr_init * spatial_lr_scale,
@@ -126,7 +148,12 @@ def make_train_step(opt_cfg: OptimizationParams, *, max_sh_degree: int = 3,
         total, terms, grads, screen_grads, pkg = loss_and_grads(
             gs, camera, gt_image, iteration, bg, opt_cfg,
             max_sh_degree=max_sh_degree, depth_ratio=depth_ratio,
-            cull=cull, device=device)
+            cull=cull, device=device, group=group, grid=grid)
+        if reduce_group is not None:
+            *g, screen_grads = all_reduce_sum(
+                [getattr(grads, f) for f in FIELDS] + [screen_grads],
+                reduce_group)
+            grads = GaussianParams(*g)
         xyz_lr = lr_for(iteration if lr_iteration is None
                         else int(lr_iteration))
         lrs = make_lrs(xyz_lr, feature_lr=opt_cfg.feature_lr,

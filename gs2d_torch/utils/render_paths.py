@@ -3,12 +3,14 @@
 NumPy copy of ``gs2d_tpu/utils/render_paths.py`` (the reference's
 ``utils/render_utils.py``, multinerf-derived): focus-point estimation, PCA
 pose normalization, elliptical orbit paths, Camera generation, and video
-export through cv2 (``create_video`` raises ImportError where cv2 is not
-installed).
+export. The JAX package writes an mp4v file through cv2, which the card's
+machine lacks; ``create_video`` writes an uncompressed RGB24 AVI instead,
+lossless, in NumPy and ``struct``.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import List
 
 import numpy as np
@@ -148,17 +150,47 @@ def generate_path(viewpoint_cameras, n_frames: int = 480) -> List:
     return out
 
 
+def _chunk(fourcc: bytes, data: bytes) -> bytes:
+    pad = b"\0" if len(data) % 2 else b""
+    return fourcc + struct.pack("<I", len(data)) + data + pad
+
+
+def _list(kind: bytes, data: bytes) -> bytes:
+    return _chunk(b"LIST", kind + data)
+
+
 def create_video(frames: List[np.ndarray], path: str, fps: int = 30):
-    """H.264-ish video via cv2 (replaces mediapy, reference :203-268)."""
-    import cv2
+    """Write (H, W, 3) RGB frames in [0, 1] (uint8 after clip and ×255,
+    truncated, as the JAX writer converts) to ``path`` as an uncompressed
+    AVI: one video stream of top-down (negative height) BGR ``DIB ``
+    frames (BI_RGB, 24 bits, rows padded to 4 bytes) and an ``idx1``
+    index. Top-down, because FFmpeg's bottom-up path (behind OpenCV's
+    reader) returned corrupt frames."""
     if not frames:
         return
     h, w = frames[0].shape[:2]
-    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
-    if not vw.isOpened():
-        raise RuntimeError(
-            f"cv2.VideoWriter could not open {path} (mp4v codec missing?)")
-    for f in frames:
+    stride = (3 * w + 3) // 4 * 4
+    size = stride * h
+    movi, index = [], []
+    for k, f in enumerate(frames):
+        if f.shape[:2] != (h, w):
+            raise ValueError(f"frame {k} is {f.shape[:2]}, not {(h, w)}")
         img = (np.clip(f, 0, 1) * 255).astype(np.uint8)
-        vw.write(cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
-    vw.release()
+        rows = np.zeros((h, stride), np.uint8)
+        rows[:, :3 * w] = img[:, :, ::-1].reshape(h, 3 * w)
+        index.append(struct.pack("<4sIII", b"00db", 0x10,
+                                 4 + k * (8 + size), size))
+        movi.append(_chunk(b"00db", rows.tobytes()))
+    n = len(frames)
+    avih = struct.pack("<14I", round(1e6 / fps), size * fps, 0, 0x10, n, 0,
+                       1, size, w, h, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"DIB ", 0, 0, 0, 0,
+                       1, fps, 0, n, size, 0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHHIIiiII", 40, w, -h, 1, 24, 0, size, 0, 0, 0,
+                       0)
+    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + _list(
+        b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)))
+    body = b"AVI " + hdrl + _list(b"movi", b"".join(movi)) \
+        + _chunk(b"idx1", b"".join(index))
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", len(body)) + body)

@@ -78,7 +78,7 @@ def test_train_cli_writes_reads_and_resumes(dataset, tmp_path):
     common = ["-s", str(dataset), "--eval", "--iterations", "30",
               "--sh_degree", "1", "--densify_from_iter", "5",
               "--densification_interval", "10", "--device", "cpu",
-              "--quiet"]
+              "--quiet", "--no_viewer"]
     res = t_train_cli.main(common + [
         "-m", str(out), "--test_iterations", "30", "--save_iterations",
         "15", "--checkpoint_iterations", "15"])
@@ -124,6 +124,43 @@ def test_train_cli_writes_reads_and_resumes(dataset, tmp_path):
     assert finals[0] == finals[1]
 
 
+def test_train_cli_on_two_local_ranks(dataset, tmp_path, capfd):
+    """``--data_devices 2`` on the CPU: two gloo ranks, each rendering one
+    row band, through two densifies. The PLYs equal the one-rank run's at
+    the gradient bar, and only the first rank writes and prints."""
+    from .test_torch_kernel_bwd import assert_grad_close
+    common = ["-s", str(dataset), "--iterations", "30", "--sh_degree", "1",
+              "--densify_from_iter", "5", "--densification_interval", "10",
+              "--device", "cpu", "--no_viewer", "--test_iterations", "30",
+              "--save_iterations", "20"]
+    one = t_train_cli.main(common + ["-m", str(tmp_path / "one")])
+    capfd.readouterr()
+    two = t_train_cli.main(common + ["-m", str(tmp_path / "two"),
+                                     "--data_devices", "2"])
+    out = capfd.readouterr().out
+    assert out.count("Training complete.") == 1
+    assert out.count("[ITER 30] eval PSNR") == 1
+    assert abs(two["psnr"][30] - one["psnr"][30]) < 1e-3
+    assert [w["points"] for w in two["windows"]] == \
+        [w["points"] for w in one["windows"]]
+    def listing(run):
+        # the ranks are spawned, so TensorBoard is not blocked there
+        return sorted(str(p.relative_to(tmp_path / run))
+                      for p in (tmp_path / run).rglob("*")
+                      if not p.name.startswith("events.out.tfevents"))
+
+    assert listing("one") == listing("two")
+    assert len(list((tmp_path / "two").glob("events.out.tfevents*"))) == 1
+    for it in (20, 30):
+        a = t_load_ply(_ply(tmp_path / "one", it), 1, device="cpu")
+        b = t_load_ply(_ply(tmp_path / "two", it), 1, device="cpu")
+        assert a.params.xyz.shape[0] == b.params.xyz.shape[0] > 300
+        for f in ("xyz", "features_dc", "features_rest", "scaling",
+                  "rotation", "opacity"):
+            assert_grad_close(getattr(b.params, f).numpy(),
+                              getattr(a.params, f).numpy(), f"{f} at {it}")
+
+
 @pytest.fixture(scope="module")
 def jax_model(dataset, tmp_path_factory):
     """A model directory written by the JAX package: cfg_args.json, then
@@ -157,6 +194,31 @@ def rendered(jax_model, tmp_path_factory, monkeypatch_module):
         "render.py", "-m", str(j_dir), "--mesh_res", "16", "--interpret"])
     j_render_cli.main()
     return p_dir, j_dir, p_res
+
+
+def test_render_cli_writes_the_trajectory_video(jax_model, tmp_path):
+    """``--render_path`` without cv2 in the port: an uncompressed AVI whose
+    frames, read back by OpenCV, are the trajectory's PNGs byte for
+    byte."""
+    import cv2
+    model = tmp_path / "model"
+    shutil.copytree(jax_model, model)
+    res = t_render_cli.main(["-m", str(model), "--render_path",
+                             "--skip_train", "--skip_test", "--skip_mesh",
+                             "--device", "cpu"])
+    assert res["video"].endswith("render_traj.avi")
+    pngs = sorted((model / "traj" / f"ours_{ITERS}" / "renders").iterdir())
+    cap = cv2.VideoCapture(res["video"])
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    assert len(frames) == len(pngs) == 240
+    for f, p in zip(frames, pngs):
+        np.testing.assert_array_equal(f, np.asarray(Image.open(p)))
 
 
 @pytest.fixture(scope="module")
@@ -270,7 +332,7 @@ def test_metrics_cli_isolates_a_broken_scene(rendered, tmp_path, capsys):
 
 # --- the benchmark harnesses (m360_eval, dtu_eval, tnt_eval) ----------------
 
-HARNESS_ITERS = ["--iterations", "10", "--quiet"]
+HARNESS_ITERS = ["--iterations", "10", "--quiet", "--no_viewer"]
 COARSE_MESH = ["--num_cluster", "1", "--voxel_size", "0.1", "--sdf_trunc",
                "0.4", "--depth_trunc", "3.0"]
 

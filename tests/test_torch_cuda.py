@@ -582,3 +582,119 @@ def test_ig2g_edit_on_the_card_matches_the_cpu(cuda):
                                   noise.to(dev)).cpu())
     assert outs[0].shape == (1, 3, 40, 24)
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("height", [120, 100])
+def test_band_kernels_match_plain_versions_at_odd_heights(cuda, height):
+    """Every row band of 4 ranks (120 rows: 32/32/32/24; 100: 32/32/32/4)
+    through ``rasterize_band`` on the card: K1 and K2 at the bands' rows
+    against their plain versions on the same arguments, the stitched
+    bands equal to the full view bit for bit, and the band gradients
+    summed against the full view's at the gradient bar."""
+    from gs2d_torch.ops.rasterize import api
+    from gs2d_torch.parallel.data_parallel import rasterize_band
+    from gs2d_torch.parallel.multihost import band_rows
+    cam, (m, s, q, o, c) = _scene(cuda, W=160, H=height)
+    pre0 = preprocess(m, s, q, o, cam.world_view, cam.full_proj, cam.campos,
+                      cam.width, cam.height, colors=c)
+    names = ("A", "B", "C", "opacity", "rgb")
+    leaves = [getattr(pre0, f).detach().clone().requires_grad_()
+              for f in names]
+    pre = pre0._replace(**dict(zip(names, leaves)))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    cot = torch.randn((15, height, 160), generator=g, device=cuda)
+    full, _ = rasterize(pre, 160, height)
+    g_full = torch.autograd.grad((full * cot).sum(), leaves)
+    calls = {}
+    real_f, real_b = api.rasterize_fwd, api.rasterize_bwd
+
+    def keep(name, fn):
+        def kept(*args):
+            calls.setdefault(name, []).append(args)
+            return fn(*args)
+        return kept
+
+    api.rasterize_fwd = keep("fwd", real_f)
+    api.rasterize_bwd = keep("bwd", real_b)
+    try:
+        outs, g_sum = [], [torch.zeros_like(x) for x in leaves]
+        for y0, y1 in band_rows(height, 4):
+            out, _ = rasterize_band(pre, 160, height, y0, y1)
+            grads = torch.autograd.grad((out * cot[:, y0:y1]).sum(), leaves)
+            outs.append(out.detach())
+            g_sum = [a + b for a, b in zip(g_sum, grads)]
+    finally:
+        api.rasterize_fwd, api.rasterize_bwd = real_f, real_b
+    assert len(calls["fwd"]) == len(calls["bwd"]) == len(outs)
+    for fargs, bargs in zip(calls["fwd"], calls["bwd"]):
+        out, med, nc = kernel_fwd.rasterize_fwd(*fargs)
+        rout, rmed, _ = kernel_fwd.rasterize_fwd_reference(*fargs)
+        torch.testing.assert_close(out, rout, rtol=TOL, atol=TOL)
+        assert (med == rmed).float().mean() >= 0.999
+        d = kernel_bwd.rasterize_bwd(*bargs)
+        ref = kernel_bwd.rasterize_bwd_reference(*bargs)
+        scale = ref.abs().amax(dim=0).clamp(min=1e-6)
+        torch.testing.assert_close(d / scale, ref / scale, rtol=1e-3,
+                                   atol=5e-4)
+    assert torch.equal(torch.cat(outs, dim=1), full.detach())
+    for name, a, b in zip(names, g_sum, g_full):
+        scale = b.abs().max().clamp(min=1e-6)
+        torch.testing.assert_close(a / scale, b / scale, rtol=1e-3,
+                                   atol=5e-4, msg=name)
+
+
+def test_viewer_frame_on_the_card(cuda):
+    """One viewer frame on the card: a client's message through
+    ``NetworkGUI`` (a socket pair), the render at its resolution and each
+    of the six modes' bytes, the RGB frame equal to the same camera's
+    render."""
+    import json
+    import socket
+    import struct
+
+    from gs2d_torch.render.network_gui import (NetworkGUI, frame_bytes,
+                                               render_net_image)
+    cam, (m, s, q, o, c) = _scene(cuda, W=200, H=120)
+    state = GaussianState(
+        params=GaussianParams(
+            xyz=m, features_dc=((c - 0.5) / 0.28209479177387814)[:, None],
+            features_rest=torch.zeros((m.shape[0], 0, 3), device=cuda),
+            scaling=torch.log(s), rotation=q,
+            opacity=torch.logit(o)[:, None]),
+        active_sh_degree=0)
+    wv = cam.world_view.cpu().numpy().copy()
+    fp = cam.full_proj.cpu().numpy().copy()
+    wv[:, 1:3] = -wv[:, 1:3]
+    fp[:, 1] = -fp[:, 1]
+    items = ["RGB", "Alpha", "Normal", "Depth", "Edge", "Curvature"]
+    a, b = socket.socketpair()
+    gui = NetworkGUI(device=cuda)
+    gui.listener.close()
+    gui.conn = b
+    try:
+        for mode in range(len(items)):
+            msg = json.dumps({
+                "resolution_x": 200, "resolution_y": 120, "train": False,
+                "fov_y": cam.fovy, "fov_x": cam.fovx, "z_near": 0.01,
+                "z_far": 100.0, "keep_alive": True, "scaling_modifier": 1.0,
+                "view_matrix": wv.flatten().tolist(),
+                "view_projection_matrix": fp.flatten().tolist(),
+                "render_mode": mode}).encode()
+            a.sendall(struct.pack("I", len(msg)) + msg)
+            got, _, _, scaling, mode_got = gui.receive()
+            assert got.device.type == "cuda" and mode_got == mode
+            pkg = render(got, state, torch.zeros(3, device=cuda),
+                         max_sh_degree=0, scaling_modifier=scaling,
+                         device=cuda)
+            frame = frame_bytes(render_net_image(pkg, items, mode))
+            assert len(frame) == 200 * 120 * 3
+            if mode == 0:
+                ref = render(cam, state, torch.zeros(3, device=cuda),
+                             max_sh_degree=0, device=cuda)
+                diff = np.abs(np.frombuffer(frame, np.uint8).astype(int)
+                              - np.frombuffer(frame_bytes(ref["render"]),
+                                              np.uint8))
+                assert diff.max() <= 1
+    finally:
+        a.close()
+        b.close()

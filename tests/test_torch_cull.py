@@ -65,6 +65,37 @@ def _jax_pre(cloud, w, h, opacity=None):
         colors=jnp.asarray(rgb))
 
 
+def _edge_on_cloud():
+    """The edge_on scene's random_cloud tuple (a list)."""
+    # normals within 0.01 degree of perpendicular to each splat's own
+    # view ray (the camera sits at z = -4): near-edge-on slivers, whose
+    # discriminant is convex (alf >= 0); and 12 large splats just in
+    # front of the camera, whose support reaches past its plane: quu,
+    # the chord's denominator, is no longer positive and cond falls
+    # back to the full rectangle row. 60 of the slivers are exactly
+    # edge-on: alf is 0 but for rounding, which float64 conic
+    # constants alone do not cover (binning._conic_constants)
+    cloud = list(random_cloud(300, 5, scale_lo=0.05, scale_hi=0.5))
+    rng = np.random.default_rng(5)
+    view = cloud[0] - np.float32([0.0, 0.0, -4.0])
+    view /= np.linalg.norm(view, axis=1, keepdims=True)
+    nrm = np.cross(view, rng.normal(size=(300, 3)))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tilt = rng.uniform(-2e-4, 2e-4, (300, 1))
+    tilt[NEAR:NEAR + 60] = 0.0
+    nrm = np.cos(tilt) * nrm + np.sin(tilt) * view
+    q = np.stack([1 + nrm[:, 2], -nrm[:, 1], nrm[:, 0], 0 * tilt[:, 0]],
+                 -1)
+    q[:NEAR] = cloud[2][:NEAR]
+    cloud[2] = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(
+        np.float32)
+    cloud[0][:NEAR] = np.stack(
+        [rng.uniform(-0.3, 0.3, NEAR), rng.uniform(-0.2, 0.2, NEAR),
+         rng.uniform(-3.6, -3.0, NEAR)], -1)
+    cloud[1][:NEAR] = rng.uniform(0.3, 1.0, (NEAR, 2))
+    return cloud
+
+
 @functools.cache
 def _fields(name):
     """(JAX preprocess output, width, height) of a named scene."""
@@ -80,33 +111,7 @@ def _fields(name):
         B = jp.B.at[g[2], 1].set(jnp.nan)
         return jp._replace(A=A, B=B), w, h
     if name == "edge_on":
-        # normals within 0.01 degree of perpendicular to each splat's own
-        # view ray (the camera sits at z = -4): near-edge-on slivers, whose
-        # discriminant is convex (alf >= 0); and 12 large splats just in
-        # front of the camera, whose support reaches past its plane: quu,
-        # the chord's denominator, is no longer positive and cond falls
-        # back to the full rectangle row. 60 of the slivers are exactly
-        # edge-on: alf is 0 but for rounding, which float64 conic
-        # constants alone do not cover (binning._conic_constants)
-        cloud = list(random_cloud(300, 5, scale_lo=0.05, scale_hi=0.5))
-        rng = np.random.default_rng(5)
-        view = cloud[0] - np.float32([0.0, 0.0, -4.0])
-        view /= np.linalg.norm(view, axis=1, keepdims=True)
-        nrm = np.cross(view, rng.normal(size=(300, 3)))
-        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-        tilt = rng.uniform(-2e-4, 2e-4, (300, 1))
-        tilt[NEAR:NEAR + 60] = 0.0
-        nrm = np.cos(tilt) * nrm + np.sin(tilt) * view
-        q = np.stack([1 + nrm[:, 2], -nrm[:, 1], nrm[:, 0], 0 * tilt[:, 0]],
-                     -1)
-        q[:NEAR] = cloud[2][:NEAR]
-        cloud[2] = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(
-            np.float32)
-        cloud[0][:NEAR] = np.stack(
-            [rng.uniform(-0.3, 0.3, NEAR), rng.uniform(-0.2, 0.2, NEAR),
-             rng.uniform(-3.6, -3.0, NEAR)], -1)
-        cloud[1][:NEAR] = rng.uniform(0.3, 1.0, (NEAR, 2))
-        return _jax_pre(cloud, w, h), w, h
+        return _jax_pre(_edge_on_cloud(), w, h), w, h
     assert name == "opacity_0.0045"
     return _jax_pre(random_cloud(300, 6, scale_lo=0.05, scale_hi=0.5), w, h,
                     opacity=0.0045), w, h

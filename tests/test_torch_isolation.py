@@ -61,6 +61,10 @@ def test_renderer_imports_with_jax_blocked():
                "import gs2d_torch.cli.dtu_eval, gs2d_torch.cli.tnt_eval\n"
                "import gs2d_torch.cli.train_ig2g, gs2d_torch.ig2g.pipeline\n"
                "import gs2d_torch.ig2g.sd_weights\n"
+               "import gs2d_torch.parallel.multihost\n"
+               "import gs2d_torch.parallel.data_parallel\n"
+               "import gs2d_torch.parallel.gaussian_parallel\n"
+               "import gs2d_torch.render.network_gui, gs2d_torch.cli.view\n"
                "print(sorted(m for m in sys.modules "
                "if m.startswith(('jax', 'gs2d_tpu'))))\n")
     assert out.strip() == "['gs2d_tpu', 'jax']"   # only the blocked stubs
@@ -209,3 +213,31 @@ def test_ig2g_runs_with_those_libraries_blocked(tmp_path):
     vocab = 256 * 2 + 3
     assert out.split("\n")[:3] == [f"[{vocab}, {vocab - 1}, {vocab + 1}]",
                                     "(1, 3, 24, 16) True", "raised"]
+
+
+PARALLEL_FILES = sorted((ROOT / "gs2d_torch" / "parallel").rglob("*.py")) + [
+    ROOT / "gs2d_torch" / "render" / "network_gui.py",
+    ROOT / "gs2d_torch" / "cli" / "view.py",
+    ROOT / "tests" / "test_torch_dist_common.py"]
+
+
+def test_parallel_and_viewer_import_nothing_the_cards_machine_lacks():
+    """The multi-GPU modules, the viewer and the module the test ranks
+    run import neither JAX nor matplotlib, cv2 or PIL."""
+    assert len(PARALLEL_FILES) == 7
+    bad = [(str(p.relative_to(ROOT)), m) for p in PARALLEL_FILES
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "gs2d_tpu", "matplotlib",
+                                  "cv2", "PIL")]
+    assert bad == []
+
+
+def test_test_ranks_hold_no_jax():
+    """The children of the multi-process tests (2 gloo ranks rendering
+    their bands and running the backward) hold no JAX or gs2d_tpu module:
+    ``results`` fails otherwise, for every multi-process test."""
+    from .test_torch_dist_common import band_worker, start_ranks
+    from .utils import random_cloud
+    (img0, g0), (img1, g1) = start_ranks(band_worker, 2,
+                                         random_cloud(100, 1)).results()
+    assert img0 == img1 and np.isfinite([g0, g1]).all()
