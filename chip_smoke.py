@@ -8,10 +8,12 @@ port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
 (``gs2d_torch.train.loop.train``), the benchmark entry point
 (``python -m gs2d_torch.cli.bench``), the data path (the train, render
 and metrics CLIs on a dataset on disk), the eval slice (JPEG scenes,
-LPIPS, the DTU and TnT scores, the M360 harness) and the IG2G editing path
+LPIPS, the DTU and TnT scores, the M360 harness), the IG2G editing path
 (``python -m gs2d_torch.cli.train_ig2g`` with the SD-1.5 InstructPix2Pix
-at full width, seeded random weights) on the card, all with the binning's
-interval cull on, the default:
+at full width, seeded random weights), several GPUs' code paths and the
+viewer, and the last modules (the CLIP metrics at full width, the
+analysis, the JPEG encoder and the user scripts) on the card, all with the
+binning's interval cull on, the default:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel, compiled together, with the build seconds and
@@ -138,12 +140,38 @@ interval cull on, the default:
    noise channels) and the latest K2 call held against their plain
    versions; finite losses; the PLY at the last iteration loaded. Prints
    s per edit, ms per step, the CLI's s and peak GiB;
-15. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+15. several GPUs' code paths on one card and the live viewer (row bands,
+   the NCCL step, the train CLI under torchrun, six viewer frames; see
+   ``parallel_phase`` and ``viewer_phase``);
+16. the last modules: (a) seeded TINY CLIP snapshots under both pooling
+   rules, image and text features on the card against the CPU within
+   rtol 1e-4 / atol 1e-5; (b) ViT-B/16 and ViT-L/14 at full width
+   (seeded F16 snapshots in the transformers layout through the port's
+   safetensors writer, a synthetic tokenizer, preprocessor_config.json),
+   the parameter counts gated, the IG2G edits' image features and two
+   captions' text features on the card within FULL_REL of the CPU's
+   largest value and past it with TF32 on (the control), ms per image
+   embed at batch 1 and 4 and TFLOP/s; (c) the CLIP score and the
+   directional similarity of the IG2G phase's 4 edits against their
+   renders, finite, non-zero, card within 1e-4 of the CPU; (d) their
+   spectra and spectrum similarity matrix, card against CPU within 1e-9
+   relative; (e) ``make_synthetic_scene --preset rich`` at 1920x1080
+   (K1 once per view, the dataset loaded through ``Scene``); (f)
+   ``convert --resize`` on the data path's 64 views as q95 JPEGs behind
+   a stub colmap written under build/chip_smoke/ (a subset converted
+   again on the CPU, byte-equal; round-trip PSNR; ms per resize and per
+   encode); (g) ``render_all`` over the data path's model with
+   --skip_mesh; (h) ``run_all`` over the synthetic scene's root,
+   RUN_ALL_ITERS iterations; (i) ``quality_readout`` on the data path's
+   model (its NVS metrics equal to phase 12's, a finite chamfer, the mesh
+   resolution that ran). K1's latest calls of (e), (g) and (i) are held
+   against the plain version and every path's launches counted;
+17. one ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths, error, time, plain-version time, library-call time where there
    is one, ptxas's report and the bound computed from this run's inputs
    (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32; K1's and K2's operations
    on their composited pairs, the pair counts under ``bound_detail``);
-16. the card line, then ``{"ok": true, "device": {...}}`` as the last
+18. the card line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Any failure exits non-zero before the last line is printed; so does a
@@ -2312,6 +2340,7 @@ def data_path(report):
     # the eval phase scores this model and mesh; main deletes ``work``
     report.update(train_counts=train_counts, render_counts=render_counts,
                   work=work, data=data, model=model, surf=surf, windows=wins,
+                  metrics=m,
                   mesh=rres["mesh"].replace(".ply", "_post.ply"))
     print("data path " + json.dumps({
         "write_s": write_s, "codec": codec, "scene_load_s": seen["load_s"],
@@ -3076,6 +3105,10 @@ def ig2g_phase(report, dpath):
             raise AssertionError(f"ig2g edit {e}, image {tuple(img.shape)} "
                                  f"in [{float(img.min())}, "
                                  f"{float(img.max())}]")
+    # phase 16 scores the edits against their renders
+    report["edit_pairs"] = [(ren.detach().cpu(), img[0].detach().cpu())
+                            for (ren, _), (_, img) in zip(renders.outs,
+                                                          resizes.calls)]
     del renders.outs, resizes.calls
     n_it = IG2G_ITERS
     if counts["rasterize_fwd"] != n_it + len(IG2G_EDITS) \
@@ -3547,6 +3580,515 @@ def parallel_phase(report, dpath):
     print(f"parallel phase: {report['phase_s']:.1f} s", flush=True)
 
 
+# --- phase 16: the last modules ---------------------------------------------
+
+CLIP_SEED = 0
+CLIP_REPS = 5
+CLIP_SCORE_TOL = 1e-4              # card against CPU, absolute
+SPECTRUM_REL = 1e-9                # float64 FFT, card against CPU
+CLIP_COUNTS = {"vit_b16": 149_620_737, "vit_l14": 427_616_513}
+CAPTION_ORIG = "a rendered scene"
+SYNTH_VIEWS = (16, 4)              # train, test (the CLI's 40 + 8, cut)
+RUN_ALL_ITERS = 300
+CONVERT_CPU_VIEWS = 4              # views converted again on the CPU
+READOUT_MESH_RES = 512             # the readout's 1024, cut
+
+STUB_COLMAP = '''#!{python}
+"""A stand-in for colmap: logs its arguments; image_undistorter copies
+the input images and writes an empty sparse model, as the real one lays
+its output out."""
+import json, os, shutil, sys
+here = os.path.dirname(os.path.abspath(__file__))
+with open(os.path.join(here, "colmap_calls.jsonl"), "a") as f:
+    f.write(json.dumps(sys.argv[1:]) + "\\n")
+if sys.argv[1] == "image_undistorter":
+    a = dict(zip(sys.argv[2::2], sys.argv[3::2]))
+    shutil.copytree(a["--image_path"], os.path.join(a["--output_path"],
+                    "images"), dirs_exist_ok=True)
+    os.makedirs(os.path.join(a["--output_path"], "sparse"), exist_ok=True)
+    for n in ("cameras.bin", "images.bin", "points3D.bin"):
+        open(os.path.join(a["--output_path"], "sparse", n), "wb").close()
+'''
+
+
+def rel_close(got, ref, rel, what) -> float:
+    """max |got - ref| / max |ref| after checking it is within ``rel``."""
+    import torch
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}, or not finite")
+    err = float((got - ref).abs().max() / ref.abs().max())
+    if not err <= rel:
+        raise AssertionError(f"{what}: {err:.3g} of the CPU's largest "
+                             f"value, past {rel}")
+    return err
+
+
+def clip_tiny_card_vs_cpu(root: Path) -> dict:
+    """Phase 16a: seeded TINY CLIP snapshots under both pooling rules, the
+    image and text features on the card against the CPU at the TINY
+    bar."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.ig2g import clip_model
+    from gs2d_torch.ig2g.metrics import ClipMetrics
+    from gs2d_torch.ig2g.tokenizer import write_synthetic_tokenizer
+    img = np.random.default_rng(CLIP_SEED).random((3, 90, 160)) \
+        .astype(np.float32)
+    errs = {}
+    words = IG2G_PROMPT.split()
+    # the synthetic tokenizer puts its two specials last: EOT is the top id
+    eot = write_synthetic_tokenizer(str(root / "vocab_probe"), words) - 1
+    for eos in (2, eot):
+        t = clip_model.TINY
+        cfg = clip_model.CLIPConfig(t.text, t.vision, t.projection, eos)
+        sub = root / f"tiny_eos_{eos}"
+        clip_model.write_random_snapshot(
+            str(sub), cfg, torch.Generator().manual_seed(CLIP_SEED), words,
+            device="cpu", dtype=torch.float32)
+        m = {dev: ClipMetrics(str(sub), device=dev).model
+             for dev in ("cpu", "cuda")}
+        with torch.no_grad():
+            f = {dev: (e.model.get_image_features(e.pixels(img)),
+                       e.model.get_text_features(e.ids(IG2G_PROMPT)))
+                 for dev, e in m.items()}
+        rule = "argmax" if eos == 2 else "first_eos"
+        errs[f"image_{rule}"] = held_close(f["cuda"][0], f["cpu"][0],
+                                           "tiny clip image")
+        errs[f"text_{rule}"] = held_close(f["cuda"][1], f["cpu"][1],
+                                          "tiny clip text")
+    return errs
+
+
+def clip_flops(cfg, batch: int) -> float:
+    """TFLOP of one image embed at ``batch`` (FlopCounterMode, meta)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gs2d_torch.ig2g.clip_model import CLIPModel
+    m = CLIPModel(cfg, device="meta")
+    s = cfg.vision.image_size
+    x = torch.zeros((batch, 3, s, s), device="meta")
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        m.get_image_features(x)
+    return fc.get_total_flops() / 1e12
+
+
+def clip_full_width(report, root: Path, pairs):
+    """Phase 16b: B/16 and L/14 at full width (seeded random weights as
+    transformers-layout snapshots, F16 through the port's safetensors
+    writer, a synthetic tokenizer, preprocessor_config.json), loaded on
+    the card and on the CPU through ``ClipMetrics``: parameter counts
+    gated; image features of the IG2G edits (batch 4) and text features of
+    the two captions on the card within FULL_REL of the CPU's largest
+    value, the same with TF32 on past it (the control); ms per image embed
+    at batch 1 and 4 (mean of CLIP_REPS, CUDA events) and TFLOP/s. Returns
+    the card's and the CPU's ClipMetrics."""
+    import torch
+
+    from gs2d_torch.ig2g import clip_model
+    from gs2d_torch.ig2g.metrics import ClipMetrics
+    roots = {"vit_b16": root / "clip-vit-base-patch16",
+             "vit_l14": root / "clip-vit-large-patch14"}
+    cfgs = {"vit_b16": clip_model.CLIP_VIT_B16,
+            "vit_l14": clip_model.CLIP_VIT_L14}
+    g = torch.Generator(device="cuda").manual_seed(CLIP_SEED)
+    out = {"snapshot": {}}
+    for name, r in roots.items():
+        t0 = time.perf_counter()
+        sizes = clip_model.write_random_snapshot(
+            str(r), cfgs[name], g, IG2G_PROMPT.split()
+            + CAPTION_ORIG.split(), device="cuda")
+        out["snapshot"][name] = {"write_s": time.perf_counter() - t0,
+                                 "bytes": sizes["model.safetensors"]}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card = ClipMetrics(str(roots["vit_b16"]), str(roots["vit_l14"]),
+                       device=DEVICE)
+    torch.cuda.synchronize()
+    out["load_card_s"] = time.perf_counter() - t0
+    cpu = ClipMetrics(str(roots["vit_b16"]), str(roots["vit_l14"]),
+                      device="cpu")
+    counts = {name: sum(p.numel() for p in e.model.parameters())
+              for name, e in (("vit_b16", card.model),
+                              ("vit_l14", card.large))}
+    if counts != CLIP_COUNTS:
+        raise AssertionError(f"clip parameter counts {counts}")
+    edits = [e for _, e in pairs]
+    for name, c_enc, p_enc in (("vit_b16", card.model, cpu.model),
+                               ("vit_l14", card.large, cpu.large)):
+        px_card = torch.cat([c_enc.pixels(e) for e in edits])
+        px_cpu = torch.cat([p_enc.pixels(e) for e in edits])
+        if not torch.equal(px_card.cpu(), px_cpu):
+            raise AssertionError(f"{name}: pixel values differ on the card")
+        ids_card = torch.cat([c_enc.ids(s) for s in (CAPTION_ORIG,
+                                                     IG2G_PROMPT)])
+        ids_cpu = ids_card.cpu()
+
+        def feats(enc, px, ids):
+            with torch.no_grad():
+                return (enc.model.get_image_features(px),
+                        enc.model.get_text_features(ids))
+
+        ref = feats(p_enc, px_cpu, ids_cpu)
+        got = feats(c_enc, px_card, ids_card)
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = feats(c_enc, px_card, ids_card)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        r = {"image_rel_err": rel_close(got[0], ref[0], FULL_REL,
+                                        f"{name} image features"),
+             "text_rel_err": rel_close(got[1], ref[1], FULL_REL,
+                                       f"{name} text features")}
+        r["tf32_image_rel_err"], r["tf32_text_rel_err"] = (
+            float((a.cpu().double() - b.double()).abs().max()
+                  / b.double().abs().max()) for a, b in zip(tf32, ref))
+        if not max(r["tf32_image_rel_err"], r["tf32_text_rel_err"]) \
+                > FULL_REL:
+            raise AssertionError(f"{name}: with TF32 on the features lie "
+                                 f"within the FP32 bar {FULL_REL}: {r}")
+        for b in (1, 4):
+            x = px_card[:b]
+            with torch.no_grad():
+                c_enc.model.get_image_features(x)
+                ms = cuda_ms(lambda: c_enc.model.get_image_features(x),
+                             CLIP_REPS)
+            tflop = clip_flops(cfgs[name], b)
+            r[f"embed_ms_batch{b}"] = ms
+            r[f"embed_ms_per_image_batch{b}"] = ms / b
+            r[f"tflop_batch{b}"] = tflop
+            r[f"tflop_per_s_batch{b}"] = tflop / ms * 1e3
+        out[name] = r
+    out["counts"] = counts
+    report["clip_full"] = out
+    print("last modules clip full width " + json.dumps(out), flush=True)
+    return card, cpu
+
+
+def clip_scores(report, card, cpu, pairs):
+    """Phase 16c: the CLIP score of each IG2G edit against the prompt and
+    the directional similarity of each (edit render, edit) pair, card
+    against CPU within CLIP_SCORE_TOL; finite and non-zero."""
+    import math as _math
+    rows = []
+    for i, (ren, edit) in enumerate(pairs):
+        row = {}
+        for dev, m in (("card", card), ("cpu", cpu)):
+            row[f"clip_score_{dev}"] = m.clip_score(edit, IG2G_PROMPT)
+            row[f"directional_{dev}"] = m.directional_similarity(
+                ren, edit, CAPTION_ORIG, IG2G_PROMPT)
+        for k in ("clip_score", "directional"):
+            a, b = row[f"{k}_card"], row[f"{k}_cpu"]
+            if not (_math.isfinite(a) and a != 0
+                    and abs(a - b) <= CLIP_SCORE_TOL):
+                raise AssertionError(f"edit {i} {k}: card {a!r}, CPU {b!r}")
+        rows.append(row)
+    report["clip_scores"] = rows
+    print("last modules clip scores of the IG2G edits " + json.dumps(rows),
+          flush=True)
+
+
+def analysis_card_vs_cpu(report, pairs):
+    """Phase 16d: power and radial spectra of the edits and their renders
+    and the spectrum similarity matrix, card against CPU within
+    SPECTRUM_REL of the CPU's largest value; the card's ms."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.ig2g import analysis
+    imgs = [x for pair in pairs for x in pair]
+    errs = []
+    for x in imgs:
+        for fn in (analysis.power_spectrum_2d, analysis.radial_spectrum):
+            errs.append(rel_close(fn(x.cuda(), device="cuda"),
+                                  fn(x, device="cpu"), SPECTRUM_REL,
+                                  fn.__name__))
+    t0 = time.perf_counter()
+    m_card = analysis.image_similarity_matrix(imgs, "spectrum", "cuda")
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    m_cpu = analysis.image_similarity_matrix(imgs, "spectrum", "cpu")
+    errs.append(rel_close(torch.as_tensor(m_card), torch.as_tensor(m_cpu),
+                          SPECTRUM_REL, "spectrum similarity matrix"))
+    report["analysis"] = {"max_rel_err": max(errs), "images": len(imgs),
+                          "matrix_ms_card": card_ms,
+                          "render_vs_edit": [float(m_cpu[2 * i, 2 * i + 1])
+                                             for i in range(len(pairs))],
+                          "finite": bool(np.isfinite(m_cpu).all())}
+    print("last modules analysis " + json.dumps(report["analysis"]),
+          flush=True)
+
+
+def synthetic_scene_phase(report, work: Path):
+    """Phase 16e: ``make_synthetic_scene --preset rich --width 1920
+    --height 1080`` (300k surfels, SYNTH_VIEWS views) with the counts from
+    zero: K1 once per view, its latest call held against the plain
+    version; the dataset loads through ``Scene``."""
+    import gs2d_torch.ops.rasterize.api as api
+    from gs2d_torch.cli import make_synthetic_scene
+    from gs2d_torch.config import ModelParams
+    from gs2d_torch.scene.scene import Scene
+    out = work / "synthetic" / "rich_1080p"
+    n_train, n_test = SYNTH_VIEWS
+    zero_counts()
+    t0 = time.perf_counter()
+    with LastCall(api, "rasterize_fwd") as k1:
+        make_synthetic_scene.main([
+            "--out", str(out), "--preset", "rich", "--width", "1920",
+            "--height", "1080", "--n_surfels", str(DATA_SURFELS),
+            "--n_train", str(n_train), "--n_test", str(n_test),
+            "--device", DEVICE])
+    write_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["rasterize_fwd"] != n_train + n_test:
+        raise AssertionError(f"synthetic scene launches {counts}")
+    err, _ = hold_fwd(k1.args, 5, "synthetic scene K1")
+    t0 = time.perf_counter()
+    scene = Scene(ModelParams(source_path=str(out), sh_degree=3, eval=True),
+                  seed=0, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    tr, te = scene.get_train_cameras(), scene.get_test_cameras()
+    shapes = {tuple(c.image.shape) for c in tr + te}
+    if (len(tr), len(te)) != (n_train, n_test) or shapes != {(3, 900, 1600)} \
+            or len(scene.scene_info.point_cloud[0]) != 30_000:
+        raise AssertionError(f"synthetic scene: {len(tr)} / {len(te)} views "
+                             f"of {shapes}")
+    del scene
+    report["synthetic"] = {"write_s": write_s, "load_s": load_s,
+                           "views": [n_train, n_test], "counts": counts,
+                           "fwd_err": err, "root": out.parent}
+    print("last modules synthetic scene " + json.dumps(
+        {k: v for k, v in report["synthetic"].items() if k != "root"}),
+        flush=True)
+
+
+def convert_phase(report, dpath, work: Path):
+    """Phase 16f: the data path's DATA_VIEWS 1080p views as q95 JPEGs
+    (the port's encoder on the card) under ``<scene>/input``, then
+    ``gs2d_torch.cli.convert --resize`` behind a stub colmap written
+    here: the command sequence, ``sparse/0``, ``images_{2,4,8}``; the
+    first CONVERT_CPU_VIEWS views converted again with ``--device cpu``,
+    byte-equal; round-trip PSNR; ms per encode and per resize."""
+    import sys as _sys
+
+    import numpy as np
+    import torch
+
+    from gs2d_torch.cli import convert as convert_mod
+    from gs2d_torch.scene.images import decode_image, resize
+    from gs2d_torch.scene.jpeg import encode_jpeg
+    root = work / "convert"
+    stub = root / "colmap"
+    root.mkdir(parents=True)
+    stub.write_text(STUB_COLMAP.format(python=_sys.executable))
+    stub.chmod(0o755)
+    src, src_cpu = root / "scene", root / "scene_cpu"
+    pngs = sorted((dpath["data"] / "images").iterdir())
+    (src / "input").mkdir(parents=True)
+    (src_cpu / "input").mkdir(parents=True)
+    enc_ms, psnr_in = [], []
+    for i, p in enumerate(pngs):
+        img = decode_image(str(p), "cuda")
+        jpg = src / "input" / (p.stem + ".jpg")
+        x = torch.as_tensor(img, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_jpeg(str(jpg), x)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+        psnr_in.append(psnr(decode_image(str(jpg), "cuda") / 255.0,
+                            img / 255.0))
+        if i < CONVERT_CPU_VIEWS:
+            shutil.copy(jpg, src_cpu / "input" / jpg.name)
+    timers = [CallTimer(convert_mod, n) for n in ("resize", "encode_jpeg")]
+    t0 = time.perf_counter()
+    with timers[0], timers[1]:
+        n = convert_mod.main(["-s", str(src), "--colmap_executable",
+                              str(stub), "--resize", "--device", DEVICE])
+    convert_s = time.perf_counter() - t0
+    calls = [json.loads(x)[0] for x in
+             (root / "colmap_calls.jsonl").read_text().splitlines()]
+    if n != 3 * len(pngs) or calls != ["feature_extractor",
+                                       "exhaustive_matcher", "mapper",
+                                       "image_undistorter"] \
+            or sorted(os.listdir(src / "sparse")) != ["0"] \
+            or len(os.listdir(src / "sparse" / "0")) != 3:
+        raise AssertionError(f"convert: {n} images, colmap calls {calls}")
+    t0 = time.perf_counter()
+    convert_mod.main(["-s", str(src_cpu), "--colmap_executable", str(stub),
+                      "--resize", "--device", "cpu", "--skip_matching"])
+    cpu_s = time.perf_counter() - t0
+    same = 0
+    for sub in ("images_2", "images_4", "images_8"):
+        for f in sorted(os.listdir(src_cpu / sub)):
+            if (src / sub / f).read_bytes() != (src_cpu / sub / f) \
+                    .read_bytes():
+                raise AssertionError(f"convert: {sub}/{f} differs between "
+                                     "the card and the CPU")
+            same += 1
+    # the re-encode's loss at 1/2: the card's images_2 against the exact
+    # resize of the decoded input
+    first = src / "images" / (pngs[0].stem + ".jpg")
+    full = decode_image(str(first), "cuda")
+    half = resize(full, full.shape[1] // 2, full.shape[0] // 2, "cuda")
+    psnr_half = psnr(decode_image(str(src / "images_2" / first.name),
+                                  "cuda") / 255.0, half / 255.0)
+    sizes = {sub: decode_image(str(src / sub / first.name), "cpu").shape
+             for sub in ("images_2", "images_4", "images_8")}
+    if [s[:2] for s in sizes.values()] != [(540, 960), (270, 480),
+                                           (135, 240)]:
+        raise AssertionError(f"convert sizes {sizes}")
+    report["convert"] = {
+        "views": len(pngs), "written": n, "cli_s": convert_s,
+        "cpu_views": CONVERT_CPU_VIEWS, "cpu_cli_s": cpu_s,
+        "cpu_bytes_equal_files": same,
+        "encode_1080p_ms": {"mean": float(np.mean(enc_ms)),
+                            "min": min(enc_ms), "max": max(enc_ms)},
+        "resize": timers[0].stats(), "encode_jpeg": timers[1].stats(),
+        "psnr_q95_input_db": {"min": min(psnr_in),
+                              "mean": float(np.mean(psnr_in))},
+        "psnr_images_2_vs_exact_resize_db": psnr_half}
+    print("last modules convert " + json.dumps(report["convert"]),
+          flush=True)
+
+
+def render_all_phase(report, dpath, work: Path):
+    """Phase 16g: ``gs2d_torch.cli.render_all`` over the data path's
+    model with ``--skip_mesh``, copied under ``--out_root``; counts from
+    zero: K1 once per view, its latest call held."""
+    import gs2d_torch.ops.rasterize.api as api
+    from gs2d_torch.cli import render_all
+    out_root = work / "render_all"
+    zero_counts()
+    t0 = time.perf_counter()
+    with LastCall(api, "rasterize_fwd") as k1:
+        failed = render_all.main(["-md", str(dpath["model"]), "--out_root",
+                                  str(out_root), "--", "--skip_mesh",
+                                  "--device", DEVICE])
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    n_views = DATA_VIEWS
+    (stamp,) = os.listdir(out_root)
+    copied = out_root / stamp / dpath["model"].name
+    renders = sorted(os.listdir(copied / "test" / f"ours_{DATA_ITERS}"
+                                / "renders"))
+    if failed or counts["rasterize_fwd"] != n_views or len(renders) != 8 \
+            or counts["rasterize_bwd"] or counts["gather_rows"]:
+        raise AssertionError(f"render_all: failed {failed}, launches "
+                             f"{counts}, {len(renders)} test renders")
+    err, _ = hold_fwd(k1.args, 6, "render_all K1")
+    report["render_all"] = {"cli_s": cli_s, "counts": counts,
+                            "fwd_err": err}
+    print("last modules render_all " + json.dumps(report["render_all"]),
+          flush=True)
+
+
+def run_all_phase(report, work: Path):
+    """Phase 16h: ``gs2d_torch.cli.run_all`` over the synthetic scene's
+    root, RUN_ALL_ITERS iterations with --eval; counts from zero: K1 and
+    K2 once per step, the PLY written and finite."""
+    import torch
+
+    from gs2d_torch.cli import run_all
+    from gs2d_torch.models.io import load_ply
+    root = report["synthetic"]["root"]
+    out = work / "run_all"
+    zero_counts()
+    t0 = time.perf_counter()
+    ran = run_all.main([
+        "--data_root", str(root), "--output_root", str(out), "--",
+        "--iterations", str(RUN_ALL_ITERS), "--eval", "--quiet",
+        "--no_viewer", "--device", DEVICE, "--test_iterations",
+        str(RUN_ALL_ITERS), "--save_iterations", str(RUN_ALL_ITERS)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    ply = out / ran[0] / "point_cloud" / f"iteration_{RUN_ALL_ITERS}" \
+        / "point_cloud.ply"
+    state = load_ply(str(ply), device=DEVICE)
+    if ran != ["rich_1080p"] or counts["rasterize_fwd"] < RUN_ALL_ITERS \
+            or counts["rasterize_bwd"] != RUN_ALL_ITERS \
+            or not bool(torch.isfinite(state.params.xyz).all()):
+        raise AssertionError(f"run_all: ran {ran}, launches {counts}")
+    report["run_all"] = {"cli_s": cli_s, "counts": counts,
+                         "points": state.params.xyz.shape[0],
+                         "ms_per_it": cli_s / RUN_ALL_ITERS * 1e3}
+    print("last modules run_all " + json.dumps(report["run_all"]),
+          flush=True)
+
+
+def readout_phase(report, dpath):
+    """Phase 16i: ``gs2d_torch.cli.quality_readout`` on the data path's
+    model at READOUT_MESH_RES: its NVS metrics equal to the metrics CLI's
+    of phase 12, its chamfer finite, the mesh resolution that ran
+    recorded; counts from zero around it, K1's latest call (the test
+    renders, in this process) held."""
+    import gs2d_torch.ops.rasterize.api as api
+    from gs2d_torch.cli import quality_readout
+    zero_counts()
+    t0 = time.perf_counter()
+    with LastCall(api, "rasterize_fwd") as k1:
+        rec = quality_readout.main([
+            "--model", str(dpath["model"]), "--data", str(dpath["data"]),
+            "--iteration", str(DATA_ITERS), "--mesh_res",
+            str(READOUT_MESH_RES), "--device", DEVICE])
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    nvs = rec["nvs"].get(f"ours_{DATA_ITERS}")
+    if nvs != dpath["metrics"] or counts["rasterize_fwd"] != 8 \
+            or not math.isfinite(rec.get("chamfer_mean", float("nan"))) \
+            or rec.get("mesh_res") not in (READOUT_MESH_RES,
+                                           READOUT_MESH_RES // 2) \
+            or not (dpath["model"] / "quality_readout.json").is_file():
+        raise AssertionError(f"readout: {rec}, launches {counts}, phase 12 "
+                             f"metrics {dpath['metrics']}")
+    err, _ = hold_fwd(k1.args, 7, "readout K1")
+    report["readout"] = {"cli_s": cli_s, "counts": counts, "fwd_err": err,
+                         **{k: rec.get(k) for k in (
+                             "nvs", "mesh_res", "mesh_error", "mesh_verts",
+                             "mesh_faces", "chamfer_mesh_to_gt",
+                             "chamfer_gt_to_mesh", "chamfer_mean",
+                             "fg_mesh_samples", "fg_gt_samples")}}
+    print("last modules readout " + json.dumps(report["readout"]),
+          flush=True)
+
+
+def last_modules_phase(report, dpath, ig):
+    """Phase 16: the CLIP metrics and the analysis on the IG2G phase's
+    edits, then the user scripts on the data path's dataset and model."""
+    import torch
+    t0 = time.perf_counter()
+    work = dpath["work"] / "last_modules"
+    work.mkdir(parents=True)
+    clip_root = ROOT / "build" / "chip_smoke" / "clip_snapshots"
+    shutil.rmtree(clip_root, ignore_errors=True)
+    pairs = ig.pop("edit_pairs")
+    report["clip_tiny_err"] = clip_tiny_card_vs_cpu(clip_root)
+    print("last modules clip tiny, card against CPU, max abs err "
+          + json.dumps(report["clip_tiny_err"]), flush=True)
+    card, cpu = clip_full_width(report, clip_root, pairs)
+    clip_scores(report, card, cpu, pairs)
+    del card, cpu
+    shutil.rmtree(clip_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    analysis_card_vs_cpu(report, pairs)
+    synthetic_scene_phase(report, work)
+    convert_phase(report, dpath, work)
+    render_all_phase(report, dpath, work)
+    run_all_phase(report, work)
+    readout_phase(report, dpath)
+    report["fwd_err"] = max(report[k]["fwd_err"] for k in (
+        "synthetic", "render_all", "readout"))
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"last modules phase: {report['phase_s']:.1f} s", flush=True)
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--torchrun-child":
         return torchrun_child(sys.argv[2], sys.argv[3:])
@@ -3624,13 +4166,16 @@ def main() -> int:
     parallel_phase(par, dpath)
     vw = {}
     viewer_phase(vw, dpath)
+    lm = {}
+    last_modules_phase(lm, dpath, ig)
     shutil.rmtree(dpath["work"], ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke" / "ig2g_snapshot",
                   ignore_errors=True)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], dpath["fwd_err"],
                              ev["fwd_err"], ig["fwd_err"],
                              par["band_fwd_err"],
-                             par["torchrun"]["fwd_err"], vw["fwd_err"])
+                             par["torchrun"]["fwd_err"], vw["fwd_err"],
+                             lm["fwd_err"])
     fwd["ig2g_noise_max_abs_err"] = ig["fwd_err"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], dpath["bwd_err"][0],
                              ev["bwd_err"][0], ig["bwd_err"][0],
@@ -3654,9 +4199,13 @@ def main() -> int:
     for path, counts in (("bands", par["band_counts"]),
                          ("nccl_step", par["nccl_counts"]),
                          ("torchrun_train", par["torchrun_counts"]),
-                         ("viewer", vw["viewer_counts"])):
+                         ("viewer", vw["viewer_counts"]),
+                         ("synthetic_scene", lm["synthetic"]["counts"]),
+                         ("render_all", lm["render_all"]["counts"]),
+                         ("run_all", lm["run_all"]["counts"]),
+                         ("readout", lm["readout"]["counts"])):
         fwd["launches_by_path"][path] = counts["rasterize_fwd"]
-        if path != "viewer":
+        if counts["rasterize_bwd"]:
             bwd["launches_by_path"][path] = counts["rasterize_bwd"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     fwd["bands"] = bwd["bands"] = par["bands"]
@@ -3673,7 +4222,8 @@ def main() -> int:
         "data_path_train": dpath["train_counts"]["gather_rows"],
         "eval": ev["counts"]["gather_rows"],
         "ig2g": ig["counts"]["gather_rows"],
-        "torchrun_train": par["torchrun_counts"]["gather_rows"]}
+        "torchrun_train": par["torchrun_counts"]["gather_rows"],
+        "run_all": lm["run_all"]["counts"]["gather_rows"]}
     gat["launches"] = sum(gat["launches_by_path"].values())
     gat["densify"] = [{k: d[k] for k in ("iteration", "n_before", "n_after",
                                          "ms", "gather_ms",

@@ -1,21 +1,30 @@
-// Huffman entropy decoder of one sequential JPEG scan (host C++).
+// Huffman entropy coding of sequential JPEG scans (host C++): the decoder
+// of one scan and the encoder of a baseline one.
 //
-// The contract of gs2d_torch/scene/jpeg.py::_scan_plain: from the first
-// byte after a scan's SOS header, decode every MCU of the scan into int16
-// coefficient blocks in natural (row-major) order, not dequantised, and
-// return the offset of the marker that ends the scan. It handles byte
+// Decoder, the contract of gs2d_torch/scene/jpeg.py::_scan_plain: from the
+// first byte after a scan's SOS header, decode every MCU of the scan into
+// int16 coefficient blocks in natural (row-major) order, not dequantised,
+// and return the offset of the marker that ends the scan. It handles byte
 // stuffing (FF 00), fill bits and fill bytes before a marker, the DC
 // prediction reset and RSTn resync every `restart` MCUs. No TPU kernel
 // stands behind it: the JAX package decodes JPEG through PIL on the host.
 // A 1080p photo holds ~10^6 Huffman symbols, seconds in Python, so the
 // port's main path decodes here and only the tests take the Python twin.
 //
+// Encoder (gs2d_torch/scene/jpeg.py::encode_jpeg): quantised blocks in, the
+// entropy-coded segment of one interleaved baseline scan out, as
+// libjpeg's jchuff.c writes it (DC differences per component, runs of 16
+// zeros as ZRL, EOB, 0xFF stuffed with 0x00, the last byte filled with
+// 1-bits). Tested byte for byte against PIL's writer.
+//
 // Built by gs2d_torch/cuda_build.py with the host compiler (`c++`) into a
 // shared library with a plain C interface, loaded with ctypes.
 //
-// Errors (negative returns): -1 an invalid Huffman code, -2 the data of a
-// segment ends before its last MCU, -3 a restart marker missing or out of
-// order, -4 a coefficient index past 63, -5 the file ends inside the scan.
+// Decoder errors (negative returns): -1 an invalid Huffman code, -2 the
+// data of a segment ends before its last MCU, -3 a restart marker missing
+// or out of order, -4 a coefficient index past 63, -5 the file ends inside
+// the scan. Encoder errors: -1 a symbol the table has no code for (a
+// coefficient out of the baseline range), -2 the output buffer is full.
 
 #include <cstdint>
 #include <cstring>
@@ -193,4 +202,109 @@ extern "C" int64_t jpeg_decode_scan(const char* data_, int64_t len,
     }
     return p;
   }
+}
+
+namespace {
+
+struct BitWriter {
+  uint8_t* out;
+  int64_t cap, pos = 0;
+  uint64_t acc = 0;  // pending bits, right-aligned
+  int cnt = 0;
+  bool full = false;
+
+  void byte(uint8_t b) {
+    if (pos + 2 > cap) {
+      full = true;
+      return;
+    }
+    out[pos++] = b;
+    if (b == 0xFF) out[pos++] = 0x00;
+  }
+  void put(uint32_t code, int size) {  // size in 0..16
+    acc = (acc << size) | (code & ((1u << size) - 1));
+    cnt += size;
+    while (cnt >= 8) {
+      cnt -= 8;
+      byte(static_cast<uint8_t>(acc >> cnt));
+    }
+  }
+  void flush() {  // fill the last byte with 1-bits
+    if (cnt) put(0x7F, 8 - cnt);
+  }
+};
+
+// ehufco / ehufsi of jpeg_make_c_derived_tbl: code and length per symbol,
+// length 0 where the table has no code for it.
+void build_codes(const uint8_t* counts, const uint8_t* symbols,
+                 uint16_t* code, uint8_t* size) {
+  std::memset(size, 0, 256);
+  uint32_t c = 0;
+  int k = 0;
+  for (int len = 1; len <= 16; ++len) {
+    for (int i = 0; i < counts[len - 1]; ++i, ++k, ++c) {
+      code[symbols[k]] = static_cast<uint16_t>(c);
+      size[symbols[k]] = static_cast<uint8_t>(len);
+    }
+    c <<= 1;
+  }
+}
+
+inline int nbits_of(int32_t v) {
+  int n = 0;
+  for (uint32_t a = v < 0 ? -v : v; a; a >>= 1) ++n;
+  return n;
+}
+
+}  // namespace
+
+// blocks: n_blocks int16 blocks of 64 quantised coefficients in natural
+// order, in scan order: block b belongs to component b % ncomp. huff: four
+// tables of 16 counts + 256 symbols, DC and AC of component 0, then DC and
+// AC of the other components. Returns the bytes written to `out`.
+extern "C" int64_t jpeg_encode_scan(const int16_t* blocks, int64_t n_blocks,
+                                    int32_t ncomp, const uint8_t* huff,
+                                    uint8_t* out, int64_t cap) {
+  uint16_t code[4][256];
+  uint8_t size[4][256];
+  for (int t = 0; t < 4; ++t)
+    build_codes(huff + t * 272, huff + t * 272 + 16, code[t], size[t]);
+  BitWriter w{out, cap};
+  int32_t pred[4] = {0, 0, 0, 0};
+  for (int64_t b = 0; b < n_blocks; ++b) {
+    const int c = static_cast<int>(b % ncomp);
+    const int dc = c ? 2 : 0, ac = dc + 1;
+    const int16_t* blk = blocks + b * 64;
+    int32_t diff = blk[0] - pred[c];
+    pred[c] = blk[0];
+    int n = nbits_of(diff);
+    if (!size[dc][n]) return -1;
+    w.put(code[dc][n], size[dc][n]);
+    if (n) w.put(static_cast<uint32_t>(diff < 0 ? diff - 1 : diff), n);
+    int run = 0;
+    for (int k = 1; k < 64; ++k) {
+      int32_t v = blk[kZigzag[k]];
+      if (!v) {
+        ++run;
+        continue;
+      }
+      for (; run > 15; run -= 16) {
+        if (!size[ac][0xF0]) return -1;
+        w.put(code[ac][0xF0], size[ac][0xF0]);
+      }
+      n = nbits_of(v);
+      const int rs = (run << 4) + n;
+      if (n > 15 || !size[ac][rs]) return -1;
+      w.put(code[ac][rs], size[ac][rs]);
+      w.put(static_cast<uint32_t>(v < 0 ? v - 1 : v), n);
+      run = 0;
+    }
+    if (run) {
+      if (!size[ac][0]) return -1;
+      w.put(code[ac][0], size[ac][0]);
+    }
+    if (w.full) return -2;
+  }
+  w.flush();
+  return w.full ? -2 : w.pos;
 }

@@ -8,5 +8,8 @@ AutoencoderKL (``vae.py``), the CLIP text tower (``clip_text.py``) and its
 BPE tokenizer (``tokenizer.py``) are plain PyTorch; the weights load from
 a local diffusers snapshot through the port's own safetensors reader
 (``sd_weights.py``, ``utils/safetensors.py``). The entry point is
-``python -m gs2d_torch.cli.train_ig2g``.
+``python -m gs2d_torch.cli.train_ig2g``. The edit metrics (``metrics.py``:
+the CLIP score and directional similarity through the CLIP dual encoder
+of ``clip_model.py`` and the preprocessing of ``clip_image.py``) and the
+frequency analysis (``analysis.py``) sit beside the path.
 """

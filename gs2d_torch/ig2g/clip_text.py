@@ -98,6 +98,17 @@ class _TextModel(nn.Module):
         self.final_layer_norm = nn.LayerNorm(cfg.hidden, eps=1e-5,
                                              device=device)
 
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids (B, T) int → last hidden state (B, T, hidden)."""
+        T = ids.shape[1]
+        x = self.embeddings.token_embedding(ids) \
+            + self.embeddings.position_embedding.weight[:T]
+        ar = torch.arange(T, device=ids.device)
+        mask = torch.where(ar[None, :] <= ar[:, None], 0.0, -1e9)
+        for layer in self.encoder.layers:
+            x = layer(x, mask)
+        return self.final_layer_norm(x)
+
 
 class CLIPTextModel(nn.Module):
     def __init__(self, cfg: CLIPTextConfig = SD15_CLIP, device="cuda"):
@@ -107,15 +118,7 @@ class CLIPTextModel(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         """ids (B, T) int → last hidden state (B, T, hidden)."""
-        tm = self.text_model
-        T = ids.shape[1]
-        x = tm.embeddings.token_embedding(ids) \
-            + tm.embeddings.position_embedding.weight[:T]
-        ar = torch.arange(T, device=ids.device)
-        mask = torch.where(ar[None, :] <= ar[:, None], 0.0, -1e9)
-        for layer in tm.encoder.layers:
-            x = layer(x, mask)
-        return tm.final_layer_norm(x)
+        return self.text_model(ids)
 
 
 def clip_text_apply(model: CLIPTextModel, ids: torch.Tensor) -> torch.Tensor:

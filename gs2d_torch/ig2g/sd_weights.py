@@ -70,11 +70,13 @@ def _as_tensor(x) -> torch.Tensor:
 def carry_params(module: nn.Module, raw: Mapping, what: str,
                  device="cuda") -> nn.Module:
     """Fill ``module`` by name from ``raw`` (numpy arrays — a JAX param
-    dict through ``np.asarray`` — or tensors): legacy VAE attention names
-    remapped (convolution-shaped projections reshaped), a missing name or
-    a wrong shape raises ValueError naming it, values cast to FP32 on
-    ``device``. Names ``module`` does not have are ignored. Returns the
-    module, in eval mode, without gradients."""
+    dict through ``np.asarray``, a ``transformers`` state dict — or
+    tensors): legacy VAE attention names remapped (convolution-shaped
+    projections reshaped), a missing name or a wrong shape raises
+    ValueError naming it, values cast to FP32 on ``device``. Names
+    ``module`` does not have (the ``position_ids`` buffers of older CLIP
+    snapshots) are ignored. Returns the module, in eval mode, without
+    gradients."""
     shapes = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     raw = dict(raw)
     for name, want in shapes.items():

@@ -28,8 +28,9 @@ a row-wise path (Sub is a running sum mod 256).
 Encode: Sub (the default) or Paeth on every row, through ``zlib``.
 
 Resize: ``PIL.Image.resize`` at its default (bicubic, a = -0.5, support
-scaled by the reduction factor), which the JAX loaders call, reproduced
-bit for bit: PIL's coefficients in double precision, quantised to 22
+scaled by the reduction factor), which the JAX loaders and ``convert.py``
+call, reproduced bit for bit (gray+alpha and RGBA premultiplied, as PIL
+does): PIL's coefficients in double precision, quantised to 22
 fractional bits, a horizontal then a vertical pass, each rounding and
 clipping to uint8. ``torch.nn.functional.interpolate(mode="bicubic",
 antialias=True)`` is the nearest library call, but it is not PIL: fed
@@ -312,13 +313,31 @@ def _resample_axis(img: torch.Tensor, out_size: int, dim: int):
     return torch.clamp(acc >> _PRECISION_BITS, 0, 255).to(torch.uint8)
 
 
-def resize(img: np.ndarray, width: int, height: int) -> np.ndarray:
+def resize(img: np.ndarray, width: int, height: int,
+           device=None) -> np.ndarray:
     """``PIL.Image.fromarray(img).resize((width, height))`` for a uint8
-    (H, W) or (H, W, C) array, bit for bit: the horizontal pass, then the
-    vertical, each skipped where that size does not change."""
-    t = torch.from_numpy(np.ascontiguousarray(img))
+    (H, W) or (H, W, C) array, bit for bit, computed on ``device`` (the
+    CPU by default): the horizontal pass, then the vertical, each skipped
+    where that size does not change. Gray+alpha and RGBA (C = 2, 4) are
+    resized premultiplied, as PIL converts them to ``La`` / ``RGBa`` and
+    back (colour·alpha/255 rounded, then colour·255/alpha truncated and
+    clipped where alpha is neither 0 nor 255); at their own size they
+    come back unchanged, as PIL returns a copy."""
+    t = torch.as_tensor(np.ascontiguousarray(img), device=device)
+    alpha = t.dim() == 3 and t.shape[2] in (2, 4) \
+        and tuple(t.shape[:2]) != (height, width)
+    if alpha:
+        a = t[..., -1:].to(torch.int32)
+        m = t[..., :-1].to(torch.int32) * a + 128
+        t = torch.cat([((m >> 8) + m) >> 8, a], -1).to(torch.uint8)
     if t.shape[1] != width:
         t = _resample_axis(t, width, 1)
     if t.shape[0] != height:
         t = _resample_axis(t, height, 0)
-    return t.numpy()
+    if alpha:
+        a = t[..., -1:].to(torch.int32)
+        c = t[..., :-1].to(torch.int32)
+        un = torch.clamp(c * 255 // torch.clamp(a, min=1), max=255)
+        keep = (a == 0) | (a == 255)
+        t = torch.cat([torch.where(keep, c, un), a], -1).to(torch.uint8)
+    return t.cpu().numpy()

@@ -609,3 +609,231 @@ def decode_jpeg(path: str, device="cuda") -> np.ndarray:
     """JPEG file → uint8 (H, W) for gray, else (H, W, 3): the C entropy
     decoder on the host, the pixel stages on ``device``."""
     return pixels(read_coefficients(path), device).cpu().numpy()
+
+
+# --- encoder -----------------------------------------------------------------
+#
+# ``encode_jpeg`` writes what PIL 12.1 (libjpeg-turbo 3.1) writes for
+# ``Image.save(path, quality=q, subsampling=0)`` of an RGB or L image, byte
+# for byte: SOI, a JFIF 1.01 APP0 (no density unit, 1:1, no thumbnail), one
+# DQT per table (the standard tables of ITU T.81 Annex K scaled by
+# libjpeg's jpeg_quality_scaling, capped at 255 for baseline), SOF0, one DHT
+# per table (Annex K.3's tables: libjpeg's defaults), one interleaved
+# baseline scan (4:4:4), EOI. The pixel stages run as integer torch
+# operations on the image's device: libjpeg's RGB → YCbCr (jccolor.c's
+# fixed point), edges replicated to whole blocks, the islow forward DCT
+# (jfdctint.c, int64 as its JLONG) and the reciprocal quantisation of
+# jcdctmgr.c; the Huffman coding runs in ``csrc/jpeg_entropy.cpp``.
+
+_STD_QUANT = (np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64), np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32, np.int64))
+_AC_LUMA = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+    "4a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+    "f9fa")
+_AC_CHROMA = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa")
+# (class << 4 | id, counts of code lengths 1..16, symbols): DC and AC of
+# luma, then DC and AC of chroma
+_STD_HUFF = (
+    (0x00, (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (0x10, (0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), _AC_LUMA),
+    (0x01, (0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (0x11, (0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), _AC_CHROMA))
+
+
+def quant_tables(quality: int):
+    """The two baseline tables (natural order, int64 (64,)) libjpeg's
+    ``jpeg_set_quality(quality, force_baseline=TRUE)`` sets."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255) for t in _STD_QUANT)
+
+
+def rgb_to_ycc(rgb: torch.Tensor) -> torch.Tensor:
+    """libjpeg's rgb_ycc_convert on an int64 (..., 3) tensor → (3, ...):
+    Y rounds with ONE_HALF, Cb and Cr with ONE_HALF - 1 about 128."""
+    r, g, b = rgb.unbind(-1)
+    half, off = 1 << 15, 128 << 16
+    y = _fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b + half
+    cb = -_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b \
+        + off + half - 1
+    cr = _fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b \
+        + off + half - 1
+    return torch.stack([y, cb, cr]) >> 16
+
+
+def _fdct_1d(x, shift_even, shift_odd):
+    """One pass of jpeg_fdct_islow on the 8 inputs ``x[0..7]`` (int64):
+    outputs 0 and 4 shifted left by ``-shift_even`` bits if it is
+    negative, else descaled by it, the rest descaled by ``shift_odd``."""
+    t0, t7 = x[0] + x[7], x[0] - x[7]
+    t1, t6 = x[1] + x[6], x[1] - x[6]
+    t2, t5 = x[2] + x[5], x[2] - x[5]
+    t3, t4 = x[3] + x[4], x[3] - x[4]
+    t10, t13 = t0 + t3, t0 - t3
+    t11, t12 = t1 + t2, t1 - t2
+
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    if shift_even < 0:
+        o0, o4 = (t10 + t11) << -shift_even, (t10 - t11) << -shift_even
+    else:
+        o0 = descale(t10 + t11, shift_even)
+        o4 = descale(t10 - t11, shift_even)
+    z1 = (t12 + t13) * FIX_0_541196100
+    o2 = descale(z1 + t13 * FIX_0_765366865, shift_odd)
+    o6 = descale(z1 + t12 * -FIX_1_847759065, shift_odd)
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * FIX_1_175875602
+    t4 = t4 * FIX_0_298631336
+    t5 = t5 * FIX_2_053119869
+    t6 = t6 * FIX_3_072711026
+    t7 = t7 * FIX_1_501321110
+    z1 = z1 * -FIX_0_899976223
+    z2 = z2 * -FIX_2_562915447
+    z3 = z3 * -FIX_1_961570560 + z5
+    z4 = z4 * -FIX_0_390180644 + z5
+    o7 = descale(t4 + z1 + z3, shift_odd)
+    o5 = descale(t5 + z2 + z4, shift_odd)
+    o3 = descale(t6 + z2 + z3, shift_odd)
+    o1 = descale(t7 + z1 + z4, shift_odd)
+    return [o0, o1, o2, o3, o4, o5, o6, o7]
+
+
+def fdct_islow(blocks: torch.Tensor) -> torch.Tensor:
+    """jpeg_fdct_islow on int64 (N, 8, 8) level-shifted samples → (N, 8,
+    8), scaled up by 8 as libjpeg leaves it: rows with PASS1_BITS of
+    headroom, then columns."""
+    ws = torch.stack(_fdct_1d([blocks[:, :, k] for k in range(8)],
+                              -PASS1_BITS, CONST_BITS - PASS1_BITS), 2)
+    return torch.stack(_fdct_1d([ws[:, k, :] for k in range(8)],
+                                PASS1_BITS, CONST_BITS + PASS1_BITS), 1)
+
+
+def _reciprocals(qt: np.ndarray):
+    """jcdctmgr.c's compute_reciprocal for the divisors qt << 3 (16-bit
+    DCTELEM): (reciprocal, correction, shift) per coefficient."""
+    recip, corr, shift = [], [], []
+    for d in (np.asarray(qt, np.int64) << 3).tolist():
+        r = 16 + d.bit_length() - 1
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:
+            fq, r = fq >> 1, r - 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        recip.append(fq)
+        corr.append(c)
+        shift.append(r)
+    return (np.array(recip, np.int64), np.array(corr, np.int64),
+            np.array(shift, np.int64))
+
+
+def quantize(coef: torch.Tensor, qt: np.ndarray) -> torch.Tensor:
+    """jcdctmgr.c's quantize on int64 (N, 64) DCT outputs: |x| plus the
+    correction times the reciprocal, shifted, the sign restored → int16."""
+    recip, corr, shift = (torch.as_tensor(a, device=coef.device)
+                          for a in _reciprocals(qt))
+    mag = ((coef.abs() + corr) * recip) >> shift
+    return torch.where(coef < 0, -mag, mag).to(torch.int16)
+
+
+def _blocks(plane: torch.Tensor) -> torch.Tensor:
+    """An (H, W) plane → (rows·cols, 64) level-shifted blocks, the last row
+    and column replicated to whole blocks as libjpeg's edge expansion."""
+    h, w = plane.shape
+    rows = torch.clamp(torch.arange(-(-h // 8) * 8, device=plane.device),
+                       max=h - 1)
+    cols = torch.clamp(torch.arange(-(-w // 8) * 8, device=plane.device),
+                       max=w - 1)
+    p = plane[rows][:, cols] - 128
+    nr, nc = p.shape[0] // 8, p.shape[1] // 8
+    return p.view(nr, 8, nc, 8).permute(0, 2, 1, 3).reshape(-1, 8, 8)
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return bytes((0xFF, marker)) + (len(payload) + 2).to_bytes(2, "big") \
+        + payload
+
+
+def encode_jpeg(path: str, img, quality: int = 95, subsampling: int = 0):
+    """Write ``img`` (uint8 (H, W, 3) RGB or (H, W) / (H, W, 1) gray, a
+    NumPy array or a tensor on any device) to ``path`` as PIL writes
+    ``save(path, quality=quality, subsampling=0)``. The pixel stages run on
+    the tensor's device (the CPU for an array). Anything else (another
+    channel count or dtype, a chroma subsampling) raises a ValueError that
+    names the file."""
+    t = torch.as_tensor(img)
+    if t.dim() == 3 and t.shape[2] == 1:
+        t = t[..., 0]
+    if t.dtype != torch.uint8 or t.dim() not in (2, 3) \
+            or (t.dim() == 3 and t.shape[2] != 3) or 0 in t.shape:
+        raise ValueError(f"{path}: cannot write a {t.dtype} image of shape "
+                         f"{tuple(t.shape)} as JPEG; the port writes 8-bit "
+                         "RGB (H, W, 3) and gray (H, W)")
+    if t.dim() == 3 and subsampling != 0:
+        raise ValueError(f"{path}: JPEG subsampling {subsampling}; the port "
+                         "writes 4:4:4 (subsampling=0) only")
+    h, w = t.shape[:2]
+    if max(h, w) > 65535:
+        raise ValueError(f"{path}: {w}x{h} is past JPEG's 65535 limit")
+    x = t.to(torch.int64)
+    planes = rgb_to_ycc(x) if x.dim() == 3 else x[None]
+    ncomp = planes.shape[0]
+    qts = quant_tables(quality)[:1 if ncomp == 1 else 2]
+    coefs = [quantize(fdct_islow(_blocks(p)).reshape(-1, 64),
+                      qts[min(c, 1)]) for c, p in enumerate(planes)]
+    blocks = torch.stack(coefs, 1).cpu().numpy()    # (blocks, ncomp, 64)
+
+    from .. import cuda_build
+    fn = cuda_build.load("jpeg_entropy").jpeg_encode_scan
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    huff = np.zeros((4, 16 + 256), np.uint8)
+    for k, (_, counts, symbols) in enumerate(_STD_HUFF):
+        huff[k, :16] = counts
+        huff[k, 16:16 + len(symbols)] = np.frombuffer(symbols, np.uint8)
+    n_blocks = blocks.shape[0] * ncomp
+    out = np.empty(n_blocks * 448 + 16, np.uint8)
+    n = fn(blocks.ctypes.data, n_blocks, ncomp, huff.ctypes.data,
+           out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError(f"{path}: the JPEG entropy encoder failed ({n})")
+
+    head = [b"\xff\xd8",
+            _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for tid, qt in enumerate(qts):
+        head.append(_segment(0xDB, bytes([tid]) + bytes(
+            qt[ZIGZAG].astype(np.uint8))))
+    comps = b"".join(bytes((c + 1, 0x11, min(c, 1))) for c in range(ncomp))
+    head.append(_segment(0xC0, bytes([8]) + h.to_bytes(2, "big")
+                         + w.to_bytes(2, "big") + bytes([ncomp]) + comps))
+    for cls_id, counts, symbols in _STD_HUFF[:2 if ncomp == 1 else 4]:
+        head.append(_segment(0xC4, bytes([cls_id]) + bytes(counts)
+                             + symbols))
+    sel = b"".join(bytes((c + 1, 0x11 * min(c, 1))) for c in range(ncomp))
+    head.append(_segment(0xDA, bytes([ncomp]) + sel + b"\x00\x3f\x00"))
+    with open(path, "wb") as f:
+        f.write(b"".join(head))
+        f.write(out[:n].tobytes())
+        f.write(b"\xff\xd9")

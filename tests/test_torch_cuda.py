@@ -698,3 +698,71 @@ def test_viewer_frame_on_the_card(cuda):
     finally:
         a.close()
         b.close()
+
+
+def test_clip_metrics_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A seeded TINY CLIP snapshot (both pooling rules): pixel values
+    equal, image and text features within rtol 1e-4 / atol 1e-5 of the
+    CPU's (FP32 matrix products), the CLIP score and the directional
+    similarity within 1e-4."""
+    from gs2d_torch.ig2g import clip_model
+    from gs2d_torch.ig2g.metrics import ClipMetrics
+    from gs2d_torch.ig2g.tokenizer import write_synthetic_tokenizer
+    rng = np.random.default_rng(0)
+    orig = rng.random((3, 90, 160)).astype(np.float32)
+    edit = np.clip(orig[:, ::-1] * 1.1, 0, 1).copy()
+    # the synthetic tokenizer's end-of-text id is its last
+    eot = write_synthetic_tokenizer(str(tmp_path / "probe"), ["snow"]) - 1
+    for eos in (2, eot):
+        root = str(tmp_path / f"eos{eos}")
+        cfg = clip_model.CLIPConfig(clip_model.TINY.text,
+                                    clip_model.TINY.vision,
+                                    clip_model.TINY.projection, eos)
+        clip_model.write_random_snapshot(
+            root, cfg, torch.Generator().manual_seed(eos), ["snow"],
+            device="cpu", dtype=torch.float32)
+        cpu, card = ClipMetrics(root, device="cpu"), ClipMetrics(root)
+        px_cpu, px_card = cpu.model.pixels(orig), card.model.pixels(orig)
+        assert torch.equal(px_card.cpu(), px_cpu)
+        with torch.no_grad():
+            for a, b in ((cpu.model.model.get_image_features(px_cpu),
+                          card.model.model.get_image_features(px_card)),
+                         (cpu.model.model.get_text_features(
+                             cpu.model.ids("snow")),
+                          card.model.model.get_text_features(
+                              card.model.ids("snow")))):
+                torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-5)
+        assert abs(card.clip_score(orig, "snow")
+                   - cpu.clip_score(orig, "snow")) <= 1e-4
+        assert abs(card.directional_similarity(orig, edit, "a", "snow")
+                   - cpu.directional_similarity(orig, edit, "a", "snow")) \
+            <= 1e-4
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+def test_jpeg_encoder_on_the_card_writes_the_cpus_bytes(cuda, tmp_path,
+                                                        channels):
+    """The encoder's pixel stages on the card give the file the CPU's
+    give, byte for byte, at 1080p and at a size off the block grid."""
+    from gs2d_torch.scene.jpeg import encode_jpeg
+    rng = np.random.default_rng(channels)
+    for h, w in ((1080, 1920), (37, 53)):
+        shape = (h, w, 3) if channels == 3 else (h, w)
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        encode_jpeg(str(tmp_path / "cpu.jpg"), img)
+        encode_jpeg(str(tmp_path / "card.jpg"),
+                    torch.as_tensor(img, device=cuda))
+        assert (tmp_path / "card.jpg").read_bytes() == \
+            (tmp_path / "cpu.jpg").read_bytes()
+
+
+def test_resize_on_the_card_matches_the_cpu(cuda):
+    """PIL's bicubic (premultiplied for RGBA) on the card, bit for bit."""
+    from gs2d_torch.scene.images import resize
+    rng = np.random.default_rng(5)
+    for shape in ((1080, 1920, 3), (97, 131, 4), (50, 70)):
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        for w, h in ((shape[1] // 2, shape[0] // 2),
+                     (shape[1] // 8, shape[0] // 8)):
+            np.testing.assert_array_equal(resize(img, w, h, device=cuda),
+                                          resize(img, w, h))

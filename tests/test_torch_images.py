@@ -185,6 +185,20 @@ def test_resize_is_pil_bit_for_bit(shape, size):
     np.testing.assert_array_equal(resize(src, *size), ref)
 
 
+@pytest.mark.parametrize("mode", ["LA", "RGBA"])
+@pytest.mark.parametrize("size", [(33, 24), (8, 6), (66, 48), (66, 24)],
+                         ids=["half", "eighth", "same", "one_axis"])
+def test_resize_with_alpha_is_pil_bit_for_bit(mode, size):
+    """PIL resizes gray+alpha and RGBA premultiplied (``La`` / ``RGBa``
+    and back) and returns them unchanged at their own size; alphas of 0
+    and 255 on whole columns, the rest random."""
+    rng = np.random.default_rng(len(mode) + size[0])
+    img = rng.integers(0, 256, (48, 66, len(mode)), dtype=np.uint8)
+    img[:, :9, -1], img[:, -9:, -1] = 0, 255
+    ref = np.asarray(Image.fromarray(img, mode).resize(size))
+    np.testing.assert_array_equal(resize(img, *size), ref)
+
+
 def test_interpolate_is_not_pil():
     """Why the port carries its own resample: on 1920x1080 -> 1600x900 RGB
     the library's bicubic antialias route is off PIL on a share of bytes,

@@ -30,6 +30,17 @@ def test_port_imports_no_jax_and_no_gs2d_tpu():
     assert bad == []
 
 
+def test_port_imports_no_transformers_pil_or_cv2():
+    """The card's machine has none of them: no file of the port and not
+    chip_smoke.py imports them (matplotlib only where a plot is asked
+    for, behind an ImportError)."""
+    bad = [(str(p.relative_to(ROOT)), m) for p in PORT_FILES
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("transformers", "PIL", "cv2",
+                                  "safetensors", "diffusers")]
+    assert bad == []
+
+
 def _run(code, **env):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -166,7 +177,7 @@ NOT_ON_THE_CARD = ("transformers", "safetensors", "diffusers", "PIL", "cv2",
 
 
 def test_ig2g_imports_nothing_the_cards_machine_lacks():
-    assert len(IG2G_FILES) == 11
+    assert len(IG2G_FILES) == 15
     bad = [(str(p.relative_to(ROOT)), m) for p in IG2G_FILES
            for m in _imported_modules(p)
            if m.split(".")[0] in NOT_ON_THE_CARD]
@@ -241,3 +252,46 @@ def test_test_ranks_hold_no_jax():
     (img0, g0), (img1, g1) = start_ranks(band_worker, 2,
                                          random_cloud(100, 1)).results()
     assert img0 == img1 and np.isfinite([g0, g1]).all()
+
+
+LAST_SLICE_MODULES = (
+    "gs2d_torch.ig2g.clip_model", "gs2d_torch.ig2g.clip_image",
+    "gs2d_torch.ig2g.metrics", "gs2d_torch.ig2g.analysis",
+    "gs2d_torch.cli.convert", "gs2d_torch.cli.render_all",
+    "gs2d_torch.cli.run_all", "gs2d_torch.cli.batch",
+    "gs2d_torch.cli.make_synthetic_scene",
+    "gs2d_torch.cli.quality_readout")
+
+
+def test_last_slice_runs_with_jax_transformers_and_pil_blocked(tmp_path):
+    """The CLIP metrics, the analysis, the JPEG encoder and the user
+    scripts import with JAX, gs2d_tpu, transformers, PIL, cv2 and
+    matplotlib blocked; a seeded tiny CLIP snapshot scores an image and a
+    JPEG written by the encoder decodes again."""
+    blocked = ["jax", "gs2d_tpu", "transformers", "PIL", "cv2",
+               "matplotlib", "safetensors"]
+    out = _run(
+        f"import sys\nfor m in {blocked!r}:\n    sys.modules[m] = None\n"
+        "import importlib, numpy as np, torch\n"
+        f"for m in {LAST_SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from gs2d_torch.ig2g import analysis, clip_model\n"
+        "from gs2d_torch.ig2g.metrics import ClipMetrics\n"
+        "from gs2d_torch.scene.images import decode_image\n"
+        "from gs2d_torch.scene.jpeg import encode_jpeg\n"
+        f"root = {str(tmp_path / 'clip')!r}\n"
+        "clip_model.write_random_snapshot(root, clip_model.TINY,\n"
+        "    torch.Generator().manual_seed(0), ['snow'], device='cpu')\n"
+        "img = np.random.default_rng(0).random((3, 30, 50))\n"
+        "img = img.astype(np.float32)\n"
+        "m = ClipMetrics(root, device='cpu')\n"
+        "print(np.isfinite(m.clip_score(img, 'snow')))\n"
+        "print(analysis.radial_spectrum(img, device='cpu').shape)\n"
+        "print(analysis.plot_spectra([img], ['a'], 'x.png'))\n"
+        f"path = {str(tmp_path / 'a.jpg')!r}\n"
+        "encode_jpeg(path, (img.transpose(1, 2, 0) * 255).astype(np.uint8))\n"
+        "print(decode_image(path, 'cpu').shape)\n",
+        CUDA_VISIBLE_DEVICES="")
+    assert out.split("\n")[:4] == ["True", "torch.Size([64])", "False",
+                                    "(30, 50, 3)"]
+    assert not (ROOT / "x.png").exists()

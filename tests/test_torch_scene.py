@@ -291,3 +291,28 @@ def test_load_image_jpeg_matches_jax(resolution):
     assert ja is None and ta is None
     assert ti.dtype == ji.dtype == np.float32
     np.testing.assert_array_equal(ti, ji)
+
+
+def test_load_image_gray_alpha_png_is_a_deliberate_departure(tmp_path):
+    """A gray+alpha PNG: the port loads its gray channel as RGB (three
+    equal channels, no alpha mask); the JAX loader passes the PNG's two
+    channels on, gray and alpha, as a two-channel image. The gray values
+    agree; the channel counts are the departure (ROADMAP queue 3)."""
+    from gs2d_torch.scene.dataset import CameraInfo as TInfo
+    from gs2d_torch.scene.dataset import load_image as t_load
+    from gs2d_tpu.scene.dataset import CameraInfo as JInfo
+    from gs2d_tpu.scene.dataset import load_image as j_load
+    rng = np.random.default_rng(5)
+    la = rng.integers(0, 256, (12, 20, 2), dtype=np.uint8)
+    path = str(tmp_path / "la.png")
+    Image.fromarray(la, "LA").save(path)
+    kw = dict(uid=0, R=np.eye(3), T=np.zeros(3), fovx=1.0, fovy=0.6,
+              image_path=path, image_name="la", width=20, height=12)
+    ji, ja, jwh = j_load(JInfo(**kw), 1)
+    ti, ta, twh = t_load(TInfo(**kw), 1, device="cpu")
+    assert twh == jwh == (20, 12)
+    assert ja is None and ta is None
+    assert ji.shape == (2, 12, 20) and ti.shape == (3, 12, 20)
+    np.testing.assert_array_equal(ji[1], la[..., 1] / np.float32(255))
+    for c in range(3):
+        np.testing.assert_array_equal(ti[c], ji[0])
