@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``gs2d_torch/csrc`` and drives the render path
 (``gs2d_torch.render.renderer.render``), the training step
 (``gs2d_torch.train.step.make_train_step``), the training loop
-(``gs2d_torch.train.loop.train``), the benchmark entry point
-(``python -m gs2d_torch.cli.bench``), the data path (the train, render
+(``gs2d_torch.train.loop.train``), the benchmark entry points
+(``python -m gs2d_torch.cli.bench`` and ``.bench_scale``), the per-shard
+checkpoint, the data path (the train, render
 and metrics CLIs on a dataset on disk), the eval slice (JPEG scenes,
 LPIPS, the DTU and TnT scores, the M360 harness), the IG2G editing path
 (``python -m gs2d_torch.cli.train_ig2g`` with the SD-1.5 InstructPix2Pix
@@ -84,6 +85,18 @@ binning's interval cull on, the default:
    and K2 calls of each of its three measurements (the headline, the
    train step, the uniform 100k scene) are launched again on their
    arguments and held against the plain versions on sampled tiles;
+   (a) the scale benchmark, ``gs2d_torch.cli.bench_scale.main`` at 0.5M,
+   1M and 2M splats at 1920x1080 (records printed and appended to
+   build/chip_smoke/bench_scale.jsonl): every stage time finite and
+   positive, each kernel launched as its stages say, each N's slots
+   equal to ``bin_preprocessed``'s and no more than the un-culled count;
+   at 2M the latest K1 and K2 calls held against their plain versions on
+   sampled tiles and the latest gather bit-equal to its plain version;
+   (b) the per-shard checkpoint: the 1M-splat state after CKPT_STEPS
+   steps through ``save_checkpoint_sharded`` / ``load_checkpoint_sharded``
+   on a (1, 1) grid in an NCCL group of one rank, bit-identical, equal to
+   the npz of ``save_checkpoint`` key for key, and loaded again onto the
+   CPU; bytes, write and read seconds and GB/s beside the npz's;
 12. the data path, through the CLIs' ``main(argv)``
    (``gs2d_torch.cli.train``, ``.render``, ``.metrics``): a COLMAP
    dataset of 64 1920x1080 views of the 300k-surfel procedural scene
@@ -234,6 +247,13 @@ SMALL_LOOP = dict(iterations=300, densify_from_iter=20,
 # (size threshold 0) and 3100 (threshold 20), the opacity reset at 3000
 LOOP_FROM, LOOP_TO = 2900, 3100
 RESUME_STEPS = 5
+# phase 11a, the scale benchmark: gs2d_torch.cli.bench_scale's defaults
+SCALE_NS = (500_000, 1_000_000, 2_000_000)
+SCALE_ITERS = 8
+SCALE_TIMES = ("t_preprocess_ms", "t_binning_ms", "t_gather_ms",
+               "t_fwd_kernel_ms", "t_bwd_kernel_ms", "t_bwd_glue_ms",
+               "t_e2e_fwd_ms", "t_e2e_fwd_bwd_ms", "rays_per_s_fwd_bwd")
+CKPT_STEPS = 3                     # phase 11b: steps before the save
 # the data path: a COLMAP dataset of DATA_VIEWS 1920x1080 views of the
 # 300k-surfel procedural scene (scripts/make_synthetic_scene.py's rich
 # preset), trained DATA_ITERS iterations through the train CLI
@@ -1352,6 +1372,198 @@ def bench_phase(report, fwd, bwd):
           f"{SAMPLED_TILES} seeded tiles " + json.dumps(errs), flush=True)
     del held
     report.update(rec)
+
+
+def scale_phase(report, fwd, bwd, gat):
+    """Phase 11a: ``gs2d_torch.cli.bench_scale.main`` at SCALE_NS splats,
+    1920x1080, the cull on, in this process with the counts from zero; its
+    records are printed and appended under build/chip_smoke/. Fails unless
+    every N gives every timing key finite and positive, each kernel's
+    launches are those its stages make (K1: its stage, one call for K2's
+    inputs, e2e fwd, e2e fwd+bwd; K2: its stage and e2e fwd+bwd; the
+    gather: its stage; ``WARMUP`` + SCALE_ITERS calls a stage), and each
+    N's ``num_pairs`` is ``bin_preprocessed``'s for that view and no more
+    than ``num_pairs_uncull``. At the last N (2M) the latest K1 and K2
+    calls are held against their plain versions on sampled tiles, and the
+    latest gather equals ``gather_rows_reference`` bit for bit."""
+    import torch
+
+    from gs2d_torch.cli import bench, bench_scale
+    from gs2d_torch.ops.gather import gather_rows, gather_rows_reference
+    from gs2d_torch.ops.rasterize import api
+    from gs2d_torch.ops.rasterize.preprocess import preprocess
+    from gs2d_torch.utils.bench_scenes import make_trained_like_scene
+
+    out = ROOT / "build" / "chip_smoke" / "bench_scale.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    with LastCall(api, "rasterize_fwd") as k1, \
+            LastCall(api, "rasterize_bwd") as k2, \
+            LastCall(bench_scale, "gather_rows") as g:
+        zero_counts()
+        rc = bench_scale.main(["--n", *map(str, SCALE_NS), "--iters",
+                               str(SCALE_ITERS), "--out", str(out)])
+        counts = read_counts()
+    run_s = time.perf_counter() - t0
+    recs = [json.loads(x) for x in out.read_text().splitlines()]
+    calls = bench.WARMUP + SCALE_ITERS
+    per_n = {"rasterize_fwd": 3 * calls + 1, "rasterize_bwd": 2 * calls,
+             "gather_rows": calls}
+    bad = [r for r in recs
+           if r.get("kernel_launches") != per_n
+           or not all(isinstance(r.get(k), (int, float))
+                      and math.isfinite(r[k]) and r[k] > 0
+                      for k in SCALE_TIMES)
+           or not 0 < r["num_pairs"] <= r["num_pairs_uncull"]]
+    if rc != 0 or [r.get("n_gaussians") for r in recs] != list(SCALE_NS) \
+            or bad or counts != {k: v * len(SCALE_NS)
+                                 for k, v in per_n.items()}:
+        raise AssertionError(f"bench_scale: rc {rc}, launches {counts}, "
+                             f"records {recs}")
+    cam = bench_camera()
+    for r in recs:
+        m, sc, q, o, c = (torch.as_tensor(x, device="cuda")
+                          for x in make_trained_like_scene(r["n_gaussians"]))
+        with torch.no_grad():
+            pre = preprocess(m, sc, q, o, cam.world_view, cam.full_proj,
+                             cam.campos, WIDTH, HEIGHT, colors=c)
+            pairs = api.bin_preprocessed(pre, WIDTH, HEIGHT).num_pairs
+        if r["num_pairs"] != pairs:
+            raise AssertionError(f"bench_scale N={r['n_gaussians']}: "
+                                 f"num_pairs {r['num_pairs']}, "
+                                 f"bin_preprocessed {pairs}")
+        del m, sc, q, o, c, pre
+    e1, _ = hold_fwd(k1.args, 11, "scale 2M K1")
+    e2 = hold_bwd(k2.args, 11, "scale 2M K2")
+    with torch.no_grad():
+        gathered = gather_rows(*g.args)
+        if not torch.equal(gathered, gather_rows_reference(*g.args)):
+            raise AssertionError("scale 2M gather differs from "
+                                 "gather_rows_reference")
+    slots = int(k1.args[1].numel())
+    del k1, k2, g, gathered
+    torch.cuda.empty_cache()
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], e1)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], e2[0])
+    bwd["max_norm_err"] = max(bwd["max_norm_err"], e2[1])
+    for row, key in ((fwd, "t_fwd_kernel_ms"), (bwd, "t_bwd_kernel_ms"),
+                     (gat, "t_gather_ms")):
+        row["scale_ms"] = {str(r["n_gaussians"]): r[key] for r in recs}
+        row["launches_by_path"] = {**row.get("launches_by_path", {}),
+                                   "bench_scale": counts[row["name"]]}
+    report.update(records=recs, counts=counts, run_s=run_s,
+                  held_2m={"slots": slots, "k1_max_abs_err": e1,
+                           "k2_max_abs_err": e2[0],
+                           "k2_max_norm_err": e2[1],
+                           "gather_bit_equal": True})
+    print(f"bench_scale ({run_s:.1f} s) launches {json.dumps(counts)}; 2M "
+          f"held against the plain versions {json.dumps(report['held_2m'])}",
+          flush=True)
+
+
+def sharded_ckpt_phase(report):
+    """Phase 11b: the per-shard checkpoint on the card. The 1M-splat state
+    after CKPT_STEPS train steps (non-zero moments and statistics) is saved
+    with ``save_checkpoint_sharded`` on a (1, 1) grid in an NCCL group of
+    one rank and loaded back on it; the round trip must be bit-identical,
+    equal to ``save_checkpoint``'s npz of the same state key for key, and
+    the same files loaded onto the CPU (no group) equal too. Prints the
+    bytes written and the write and read seconds and GB/s of both
+    formats."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    from gs2d_torch.config import OptimizationParams
+    from gs2d_torch.models.io import (load_checkpoint, load_checkpoint_sharded,
+                                      save_checkpoint, save_checkpoint_sharded)
+    from gs2d_torch.parallel import gaussian_parallel as gp
+    from gs2d_torch.parallel.multihost import initialize_distributed
+    from gs2d_torch.train.optim import FIELDS, init_adam
+    from gs2d_torch.train.step import TrainState, make_train_step
+
+    state = bench_state()
+    cam = bench_camera()
+    gt = torch.as_tensor(np.random.default_rng(1).random(
+        (3, HEIGHT, WIDTH), np.float32), device="cuda")
+    step = make_train_step(OptimizationParams(lambda_dist=10.0),
+                           max_sh_degree=SH_DEGREE, depth_ratio=1.0)
+    ts = TrainState(gaussians=state, opt=init_adam(state.params))
+    for i in range(CKPT_STEPS):
+        ts, _ = step(ts, cam, gt, TRAIN_ITER + i, torch.zeros(3,
+                                                               device="cuda"))
+    del state, gt
+    g, o = ts.gaussians, ts.opt
+    if not (bool((g.denom > 0).any()) and bool((o.nu.xyz != 0).any())):
+        raise AssertionError("sharded checkpoint: the state has zero "
+                             "statistics or moments")
+    work = ROOT / "build" / "chip_smoke" / "sharded_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    path, npz = str(work / "dcp"), str(work / "chkpnt.npz")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                           backend="nccl")
+    try:
+        grid = gp.make_grid(1, 1)
+        _, save_s = timed(lambda: save_checkpoint_sharded(
+            path, g, o, TRAIN_ITER + CKPT_STEPS, 1.0, grid=grid))
+        card, load_s = timed(lambda: load_checkpoint_sharded(
+            path, grid=grid, device="cuda"))
+    finally:
+        dist.destroy_process_group()
+    host, host_s = timed(lambda: load_checkpoint_sharded(path, device="cpu"))
+    _, npz_save_s = timed(lambda: save_checkpoint(
+        npz, g, o, TRAIN_ITER + CKPT_STEPS, 1.0))
+    from_npz, npz_load_s = timed(lambda: load_checkpoint(npz,
+                                                         device="cuda"))
+
+    def cpu(st, op):
+        return TrainState(*gp._map_rows(st, op, lambda x: x.cpu()))
+
+    whole = cpu(g, o)
+    scalars = (TRAIN_ITER + CKPT_STEPS, 1.0)
+    if not (same_state(TrainState(*card[:2]), ts)
+            and same_state(cpu(*host[:2]), whole)
+            and same_state(TrainState(*from_npz[:2]), TrainState(*card[:2]))
+            and card[2:] == host[2:] == from_npz[2:] == scalars):
+        raise AssertionError("sharded checkpoint: the round trip differs")
+    stored = {k.split("@")[0] for k in dcp.FileSystemReader(path)
+              .read_metadata().state_dict_metadata}
+    with np.load(npz) as z:
+        if stored != set(z.files) - {"active"}:
+            raise AssertionError(f"sharded checkpoint keys {sorted(stored)}"
+                                 f" against the npz's {z.files}")
+        host_arr = {f"{name}.{f}": getattr(tree, f).numpy()
+                    for name, tree in (("p", host[0].params),
+                                       ("mu", host[1].mu),
+                                       ("nu", host[1].nu)) for f in FIELDS}
+        host_arr.update({f: getattr(host[0], f).numpy()
+                         for f in ("max_radii2d", "grad_accum", "denom")})
+        for k, v in host_arr.items():
+            if v.dtype != z[k].dtype or not np.array_equal(v, z[k]):
+                raise AssertionError(f"sharded checkpoint {k} differs from "
+                                     "the npz")
+    written = sum(f.stat().st_size for f in Path(path).iterdir())
+    npz_bytes = Path(npz).stat().st_size
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {"n": g.params.xyz.shape[0], "bytes": written,
+           "write_s": save_s, "read_card_s": load_s, "read_cpu_s": host_s,
+           "write_gb_s": written / save_s / 1e9,
+           "read_card_gb_s": written / load_s / 1e9,
+           "npz_bytes": npz_bytes, "npz_write_s": npz_save_s,
+           "npz_read_card_s": npz_load_s, "bit_identical": True}
+    report.update(rec)
+    print("sharded checkpoint " + json.dumps(rec), flush=True)
 
 
 def gather_bytes(table, idx) -> int:
@@ -4156,6 +4368,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench = {}
     bench_phase(bench, fwd, bwd)
+    scale = {}
+    scale_phase(scale, fwd, bwd, gat)
+    ckpt = {}
+    sharded_ckpt_phase(ckpt)
     dpath = {}
     data_path(dpath)
     ev = {}
@@ -4218,6 +4434,7 @@ def main() -> int:
     bwd["launches_by_path"]["ig2g"] = ig["counts"]["rasterize_bwd"]
     bwd["launches"] = sum(bwd["launches_by_path"].values())
     gat["launches_by_path"] = {
+        **gat["launches_by_path"],
         "loop": loop["launches"]["gather_rows"],
         "data_path_train": dpath["train_counts"]["gather_rows"],
         "eval": ev["counts"]["gather_rows"],
@@ -4232,6 +4449,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "bound_detail", "ptxas")
+    keys += ("scale_ms",)
     fwd_keys = keys + ("ms_cull_off", "plain_ms_small", "kernel_ms_small",
                        "full_image_px_agree", "full_image_med_agree",
                        "full_image_contrib_agree", "ig2g_noise_max_abs_err",

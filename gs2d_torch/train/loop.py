@@ -61,7 +61,8 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
     ``model_path``, ``get_train_cameras()`` (a list of ``CameraData``) and
     ``save(iteration, state)``.
 
-    ``log_fn(iteration, record)`` gets the EMA losses every 10 iterations;
+    ``log_fn(iteration, record)`` gets the EMA losses every 10 iterations
+    and, every 500 on the card, ``peak_hbm_gb``;
     ``report_fn(iteration, ts, scene)`` runs at ``test_iterations``;
     ``profile_dir`` receives a ``torch.profiler`` trace of iterations
     50–60; ``viewer_fn(iteration, ts, ema)`` runs after every iteration.
@@ -174,9 +175,10 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
                        "normal": ema["normal"],
                        "points": int(metrics["num_points"]),
                        "elapsed_s": time.time() - t_start}
-                if iteration % 500 == 0 and device.type == "cuda":
-                    rec["peak_gib"] = \
-                        torch.cuda.max_memory_allocated(device) / 2**30
+                peak = peak_hbm_gb(device) if iteration % 500 == 0 \
+                    else None
+                if peak is not None:
+                    rec["peak_hbm_gb"] = peak
                 log_fn(iteration, rec)
         if not io_ok:
             continue
@@ -194,6 +196,15 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
     if prof is not None:
         prof.stop()
     return ts, scene
+
+
+def peak_hbm_gb(device: torch.device) -> Optional[float]:
+    """The allocator's peak on the card in GiB (bytes / 2^30), the run
+    log's ``peak_hbm_gb`` as the JAX loop writes it
+    (``gs2d_tpu/train/loop.py:272``); None on the CPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**30
 
 
 def _replicated(ts: TrainState) -> list:

@@ -766,3 +766,64 @@ def test_resize_on_the_card_matches_the_cpu(cuda):
                      (shape[1] // 8, shape[0] // 8)):
             np.testing.assert_array_equal(resize(img, w, h, device=cuda),
                                           resize(img, w, h))
+
+
+def test_bench_scale_on_the_card(cuda):
+    """The scale benchmark at a small N on the card: every stage's time
+    finite and positive, the kernels launched as its stages say, the
+    allocator's peak recorded."""
+    from gs2d_torch.cli import bench, bench_scale
+    iters = 2
+    rec = bench_scale.bench_one(20_000, 320, 192, iters, cuda)
+    for k in ("t_preprocess_ms", "t_binning_ms", "t_gather_ms",
+              "t_fwd_kernel_ms", "t_bwd_kernel_ms", "t_bwd_glue_ms",
+              "t_e2e_fwd_ms", "t_e2e_fwd_bwd_ms", "rays_per_s_fwd_bwd"):
+        assert math.isfinite(rec[k]) and rec[k] > 0, k
+    assert 0 < rec["num_pairs"] <= rec["num_pairs_uncull"]
+    calls = bench.WARMUP + iters
+    # K1: its stage, the outputs K2's stage reads, e2e fwd, e2e fwd+bwd
+    assert rec["kernel_launches"] == {"rasterize_fwd": 3 * calls + 1,
+                                      "rasterize_bwd": 2 * calls,
+                                      "gather_rows": calls}
+    assert rec["peak_hbm_gb"] > 0
+
+
+def test_sharded_checkpoint_in_an_nccl_group(cuda, tmp_path):
+    """save_checkpoint_sharded / load_checkpoint_sharded in an NCCL group
+    of one rank on a (1, 1) grid: the round trip bit for bit on the card,
+    and the same files loaded onto the CPU without a group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gs2d_torch.models.io import (load_checkpoint_sharded,
+                                      save_checkpoint_sharded)
+    from gs2d_torch.parallel import gaussian_parallel as gp
+    from gs2d_torch.parallel.multihost import initialize_distributed
+    _, state = _state(cuda, n=1000)
+    opt = init_adam(state.params)
+    for tree in (opt.mu, opt.nu):
+        for f in FIELDS:
+            getattr(tree, f).normal_()
+    state.denom.uniform_()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        grid = gp.make_grid(1, 1)
+        path = str(tmp_path / "ck")
+        save_checkpoint_sharded(path, state, opt, 42, 1.5, grid=grid)
+        back = load_checkpoint_sharded(path, grid=grid, device=cuda)
+    finally:
+        dist.destroy_process_group()
+    host = load_checkpoint_sharded(path, device="cpu")
+    for got, dev in ((back, cuda), (host, torch.device("cpu"))):
+        st, op, it, slr = got
+        assert (it, slr, op.step, st.active_sh_degree) == (42, 1.5, 0, 3)
+        for f in FIELDS:
+            for a, b in ((st.params, state.params), (op.mu, opt.mu),
+                         (op.nu, opt.nu)):
+                assert getattr(a, f).device.type == dev.type
+                assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+        assert torch.equal(st.denom.cpu(), state.denom.cpu())

@@ -228,3 +228,60 @@ def multihost_worker(rank, n, gt, fields, step_gt):
             "shard": mh.local_camera_shard(list(range(11))),
             "whole": one_step(fields, step_gt, 1, group=g),
             "banded": one_step(fields, banded, 1, group=g)}
+
+
+def ckpt_state_of(fields):
+    """A port (GaussianState, AdamState) from the NumPy fields of a JAX
+    state and its moments: ``p.*``, ``mu.*``, ``nu.*``, ``active``,
+    ``active_sh_degree``, the three statistics and ``opt_step``; only the
+    active rows are kept."""
+    import numpy as np
+    import torch
+
+    from gs2d_torch.models.gaussians import GaussianParams, state_from_numpy
+    from gs2d_torch.train.optim import FIELDS, AdamState
+    act = fields["active"]
+    state = state_from_numpy(
+        **{f: fields[f"p.{f}"] for f in FIELDS}, active=act,
+        active_sh_degree=fields["active_sh_degree"],
+        **{f: fields[f] for f in ("max_radii2d", "grad_accum", "denom")},
+        device="cpu")
+
+    def tree(prefix):
+        return GaussianParams(**{f: torch.as_tensor(np.ascontiguousarray(
+            fields[f"{prefix}.{f}"][act])) for f in FIELDS})
+
+    return state, AdamState(mu=tree("mu"), nu=tree("nu"),
+                            step=int(fields["opt_step"]))
+
+
+def ckpt_arrays(state, opt, iteration, spatial_lr_scale) -> dict:
+    """A loaded checkpoint as NumPy arrays under the npz keys."""
+    from gs2d_torch.train.optim import FIELDS
+    out = {f"{name}.{f}": getattr(tree, f).numpy().copy()
+           for name, tree in (("p", state.params), ("mu", opt.mu),
+                              ("nu", opt.nu)) for f in FIELDS}
+    out.update({f: getattr(state, f).numpy().copy()
+                for f in ("max_radii2d", "grad_accum", "denom")})
+    out.update(active_sh_degree=state.active_sh_degree, opt_step=opt.step,
+               iteration=iteration, spatial_lr_scale=spatial_lr_scale)
+    return out
+
+
+def ckpt_worker(rank, n, fields, path, save_grid, load_grid, iterations):
+    """tests/test_torch_checkpoint_sharded.py's ranks: this rank's shard
+    of the state on a ``save_grid`` (gauss, data) grid saved at each of
+    ``iterations`` in turn (none when ``save_grid`` is None), then the
+    checkpoint loaded onto a ``load_grid`` grid → this rank's coordinates
+    on it and its rows as NumPy arrays."""
+    from gs2d_torch.models.io import (load_checkpoint_sharded,
+                                      save_checkpoint_sharded)
+    from gs2d_torch.parallel import gaussian_parallel as gp
+    if save_grid is not None:
+        grid = gp.make_grid(*save_grid)
+        state, opt = gp.shard_state(*ckpt_state_of(fields), grid)
+        for it in iterations:
+            save_checkpoint_sharded(path, state, opt, it, 2.5, grid=grid)
+    grid = gp.make_grid(*load_grid)
+    loaded = load_checkpoint_sharded(path, grid=grid, device="cpu")
+    return {"coords": grid.coords(), "rows": ckpt_arrays(*loaded)}

@@ -65,6 +65,7 @@ def test_renderer_imports_with_jax_blocked():
                "import gs2d_torch.utils.synthetic_scene\n"
                "import gs2d_torch.cli.train, gs2d_torch.cli.render\n"
                "import gs2d_torch.cli.metrics, gs2d_torch.cli.bench\n"
+               "import gs2d_torch.cli.bench_scale\n"
                "import gs2d_torch.utils.bench_scenes\n"
                "import gs2d_torch.scene.jpeg, gs2d_torch.eval.lpips\n"
                "import gs2d_torch.eval.geometry, gs2d_torch.eval.dtu\n"
@@ -295,3 +296,31 @@ def test_last_slice_runs_with_jax_transformers_and_pil_blocked(tmp_path):
     assert out.split("\n")[:4] == ["True", "torch.Size([64])", "False",
                                     "(30, 50, 3)"]
     assert not (ROOT / "x.png").exists()
+
+
+def test_scale_bench_and_sharded_checkpoint_run_with_jax_blocked(tmp_path):
+    """With JAX, gs2d_tpu and orbax blocked, the scale benchmark runs a
+    tiny N on the CPU and a sharded checkpoint (torch.distributed.
+    checkpoint, no orbax) round-trips in one process."""
+    out = _run(
+        "import sys\n"
+        "for m in ('jax', 'gs2d_tpu', 'orbax'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from gs2d_torch.cli import bench_scale\n"
+        "from gs2d_torch.models.gaussians import state_from_numpy\n"
+        "from gs2d_torch.models.io import (load_checkpoint_sharded,\n"
+        "    save_checkpoint_sharded)\n"
+        "from gs2d_torch.train.optim import init_adam\n"
+        "rec = bench_scale.bench_one(200, 32, 16, 1, torch.device('cpu'))\n"
+        "print(rec['num_pairs'] > 0, rec['t_e2e_fwd_bwd_ms'] > 0)\n"
+        "r = np.random.default_rng(0)\n"
+        "st = state_from_numpy(r.random((5, 3)), r.random((5, 1, 3)),\n"
+        "    r.random((5, 15, 3)), r.random((5, 2)), r.random((5, 4)),\n"
+        "    r.random((5, 1)), np.ones(5, bool), 3, device='cpu')\n"
+        f"path = {str(tmp_path / 'ck')!r}\n"
+        "save_checkpoint_sharded(path, st, init_adam(st.params), 7)\n"
+        "st2, opt2, it, _ = load_checkpoint_sharded(path, device='cpu')\n"
+        "print(it, torch.equal(st2.params.xyz, st.params.xyz))\n",
+        CUDA_VISIBLE_DEVICES="")
+    assert out.split("\n")[:2] == ["True True", "7 True"]

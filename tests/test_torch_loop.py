@@ -258,3 +258,56 @@ def test_loop_saves_profiles_checkpoints_and_resumes(tmp_path):
     assert ts2.gaussians.params.xyz.shape == state40.params.xyz.shape
     assert all(torch.isfinite(getattr(ts2.gaussians.params, f)).all()
                for f in ("xyz", "scaling", "opacity"))
+
+
+def _jax_run_log_keys():
+    """The keys of the JAX loop's run-log record (``rec`` in
+    ``gs2d_tpu/train/loop.py``'s ``train``: the dict it builds and every
+    key it assigns)."""
+    import ast
+    from pathlib import Path
+    src = Path(j_loop.__file__).read_text()
+    fn = next(f for f in ast.parse(src).body
+              if isinstance(f, ast.FunctionDef) and f.name == "train")
+    keys = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
+                and any(isinstance(t, ast.Name) and t.id == "rec"
+                        for t in node.targets):
+            keys |= {k.value for k in node.value.keys}
+        elif isinstance(node, ast.Subscript) \
+                and isinstance(node.ctx, ast.Store) \
+                and isinstance(node.value, ast.Name) \
+                and node.value.id == "rec":
+            keys.add(node.slice.value)
+    return keys
+
+
+def test_loop_run_log_writes_peak_hbm_gb(tmp_path, monkeypatch):
+    """Every 500 iterations the run-log record carries the allocator's
+    peak as ``peak_hbm_gb``, as the JAX loop writes it, and no other peak
+    key; its keys include every key of the JAX loop's record. Resumed at
+    490 with the peak stubbed (on the CPU there is none)."""
+    from gs2d_torch.models.io import save_checkpoint
+    from gs2d_torch.train.optim import init_adam
+    assert t_loop.peak_hbm_gb(torch.device("cpu")) is None
+    images, init_pts = _stub_data()
+    scene = _PortScene(images, init_pts)
+    ck = str(tmp_path / "chkpnt490.npz")
+    save_checkpoint(ck, scene.gaussians, init_adam(scene.gaussians.params),
+                    490, scene.cameras_extent)
+    monkeypatch.setattr(t_loop, "peak_hbm_gb", lambda device: 1.25)
+    logged = {}
+    t_loop.train(
+        t_cfg.ModelParams(sh_degree=SH),
+        t_cfg.OptimizationParams(**dict(OPT_KW, iterations=510)),
+        t_cfg.PipelineParams(), t_cfg.RuntimeParams(seed=0), scene=scene,
+        test_iterations=[], save_iterations=[], start_checkpoint=ck,
+        log_fn=lambda i, r: logged.setdefault(i, r), device="cpu")
+    assert sorted(logged) == [500, 510]
+    assert logged[500]["peak_hbm_gb"] == 1.25
+    assert "peak_hbm_gb" not in logged[510]
+    assert not any("peak_gib" in r for r in logged.values())
+    jax_keys = _jax_run_log_keys()
+    assert {"loss", "points", "elapsed_s", "peak_hbm_gb"} <= jax_keys
+    assert jax_keys <= set(logged[500]), jax_keys - set(logged[500])
