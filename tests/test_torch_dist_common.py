@@ -6,9 +6,13 @@ process group, each running ``fn(rank, n, *args)``; ``.results()`` returns
 their results in rank order. Each group meets at its own ``FileStore``
 file, so groups of concurrent test workers never meet. A child that fails
 or hangs fails the test: the children are joined with a time limit, then
-killed. The children import this module, torch, numpy and the port, never
-JAX: each reports the JAX and gs2d_tpu modules it holds, and ``results``
-fails unless that list is empty.
+killed. The limit bounds the wait in ``results`` alone: its clock starts
+at the call, and every result already reported is read before the clock
+is looked at, so a parent busy with its own reference while the
+children run never counts that work against them. The children import
+this module, torch, numpy and the port, never JAX: each reports the JAX
+and gs2d_tpu modules it holds, and ``results`` fails unless that list is
+empty.
 
 The worker functions below build their inputs from NumPy arrays the test
 passes, so the test can give the same arrays to the JAX package in the
@@ -23,6 +27,7 @@ import sys
 import tempfile
 import time
 import traceback
+from queue import Empty
 
 TIMEOUT_S = 120
 
@@ -53,7 +58,7 @@ class Ranks:
         ctx = multiprocessing.get_context("spawn")
         self.tmp = tempfile.mkdtemp(prefix="gs2d_ranks_")
         self.queue = ctx.Queue()
-        self.n, self.deadline = n, time.monotonic() + timeout
+        self.n, self.timeout = n, timeout
         self.procs = [ctx.Process(
             target=_entry, args=(fn, r, n, os.path.join(self.tmp, "store"),
                                  self.queue, args), daemon=True)
@@ -62,23 +67,24 @@ class Ranks:
             p.start()
 
     def results(self) -> list:
+        """The ranks' results in rank order, waiting at most ``timeout``
+        from this call for those not yet reported."""
+        deadline = time.monotonic() + self.timeout
         got, errors = {}, []
         try:
             while len(got) + len(errors) < self.n:
-                left = self.deadline - time.monotonic()
-                if left <= 0:
-                    raise AssertionError(
-                        f"ranks {sorted(set(range(self.n)) - set(got))} did "
-                        "not finish in time")
                 try:
-                    rank, status, out, foreign = self.queue.get(
-                        timeout=min(left, 1.0))
-                except Exception:              # noqa: BLE001 - queue.Empty
+                    rank, status, out, foreign = self.queue.get(timeout=1.0)
+                except Empty:
                     if any(p.exitcode not in (None, 0) for p in self.procs) \
                             and self.queue.empty():
                         raise AssertionError(
                             "a rank died: exit codes "
                             f"{[p.exitcode for p in self.procs]}")
+                    if time.monotonic() >= deadline:
+                        raise AssertionError(
+                            f"ranks {sorted(set(range(self.n)) - set(got))} "
+                            "did not finish in time")
                     continue
                 if status != "ok":
                     errors.append(f"rank {rank}:\n{out}")
@@ -87,7 +93,7 @@ class Ranks:
                 got[rank] = out
             assert not errors, "\n".join(errors)
             for p in self.procs:
-                p.join(timeout=max(self.deadline - time.monotonic(), 1.0))
+                p.join(timeout=max(deadline - time.monotonic(), 1.0))
             assert all(p.exitcode == 0 for p in self.procs), \
                 [p.exitcode for p in self.procs]
             return [got[r] for r in range(self.n)]
@@ -104,6 +110,23 @@ def start_ranks(fn, n, *args, timeout=TIMEOUT_S) -> Ranks:
 
 
 # --- workers (run in the children) -------------------------------------------
+
+def trivial_worker(rank, n, last="ok"):
+    """tests/test_torch_ranks.py's ranks: each returns ``(rank, n)``, but
+    the last rank hangs (``last="hang"``), raises (``"raise"``) or exits
+    without reporting (``"exit"``), once the whole group has met (a rank
+    gone before its peers connect would fail them too)."""
+    import torch.distributed as dist
+    dist.barrier()
+    if rank == n - 1:
+        if last == "hang":
+            time.sleep(3600)
+        elif last == "raise":
+            raise ValueError(f"rank {rank} fails on purpose")
+        elif last == "exit":
+            os._exit(3)
+    return rank, n
+
 
 def port_camera_of(width, height):
     from .test_torch_common import port_camera
