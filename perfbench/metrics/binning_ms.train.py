@@ -1,0 +1,7 @@
+"""Host wall time of one call of the binning (api.bin_preprocessed) in training, host syncs included (ms)."""
+
+from perfbench.readers import span_ms
+
+
+def read(t):
+    return span_ms(t, "train", "bin_preprocessed")

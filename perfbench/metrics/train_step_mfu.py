@@ -1,0 +1,7 @@
+"""A training step's operations by the geometry's counts, times the traced window's it/s, over the H100's 67 TFLOP/s FP32 (%)."""
+
+from perfbench.readers import mfu_pct
+
+
+def read(t):
+    return mfu_pct(t, "train")
