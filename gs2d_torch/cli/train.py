@@ -80,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch.autograd anomaly detection")
     ap.add_argument("--profile", type=str, default=None,
                     help="write a torch.profiler trace of iterations 50-60 "
-                         "to this directory")
+                         "(trace.json) and the stages' spans and counters "
+                         "over them (spans.json) to this directory")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu")
     return ap

@@ -37,6 +37,7 @@ import torch
 from ..ops.gather import gather_rows
 from ..ops.quat import normalize_quat, quat_to_rotmat
 from ..train.optim import FIELDS, AdamState
+from ..utils import trace
 from .gaussians import GaussianParams, GaussianState
 
 # log(1.6) rounded to float32, the constant the JAX package's jitted
@@ -57,6 +58,7 @@ def add_densification_stats(state: GaussianState,
     first. A Gaussian with radius 0 was not visible and accumulates
     nothing."""
     vis = radii > 0
+    trace.count("sync")                  # a copy from pageable host memory
     scale = torch.tensor([0.5 * width, 0.5 * height],
                          dtype=screen_grads.dtype, device=screen_grads.device)
     g = screen_grads * scale

@@ -11,10 +11,14 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 
 def _intrinsics_rowvec(camera):
     """3×3 pixel→ray matrix pieces, matching point_utils.py:10-17."""
     W, H = camera.width, camera.height
+    # a copy from pageable host memory; inv reads its factorisation's info
+    trace.count("sync", 2)
     ndc2pix = torch.tensor(
         [
             [W / 2.0, 0.0, 0.0],
@@ -37,6 +41,7 @@ def depths_to_points(camera, depthmap: torch.Tensor) -> torch.Tensor:
     ys = torch.arange(H, dtype=torch.float32, device=depthmap.device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     pts = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)   # (H, W, 3)
+    trace.count("sync")                  # inv reads its factorisation's info
     rays_d = pts @ torch.linalg.inv(intrins).T @ c2w[:3, :3].T
     rays_o = c2w[:3, 3]
     return depthmap.reshape(H, W, 1) * rays_d + rays_o

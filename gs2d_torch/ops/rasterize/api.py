@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import trace
 from .binning import BinningOut, bin_gaussians
 from .common import DENTRY_F, NUM_OUT, TILE_H, TILE_W, cdiv
 from .kernel_bwd import rasterize_bwd
@@ -55,6 +56,7 @@ def reduce_slot_grads(d_slots: torch.Tensor, bins: BinningOut,
     ``counts`` gives one row per Gaussian, reordered through ``order``; the
     two center columns, which carry no gradient, are zero."""
     d_exp = torch.empty_like(d_slots).index_copy_(0, bins.perm, d_slots)
+    trace.count("sync", 2)   # segment_reduce checks the lengths' min and sum
     d_depth = torch.segment_reduce(d_exp, "sum", lengths=bins.counts)
     d_g = torch.empty((num_gaussians, DENTRY_F), dtype=d_slots.dtype,
                       device=d_slots.device).index_copy_(0, bins.order,
@@ -83,11 +85,13 @@ class _Composite(torch.autograd.Function):
     def backward(ctx, g_out, _g_med, _g_contrib):
         packed, out, med_idx, n_contrib = ctx.saved_tensors
         bins = ctx.bins
-        d_slots = rasterize_bwd(packed, bins.gid, bins.tile_start,
-                                bins.tile_count, out, g_out.contiguous(),
-                                med_idx, n_contrib, *ctx.size)
-        return (reduce_slot_grads(d_slots, bins, packed.shape[0]), None,
-                None, None, None)
+        with trace.span("raster.composite_bwd"):
+            d_slots = rasterize_bwd(packed, bins.gid, bins.tile_start,
+                                    bins.tile_count, out, g_out.contiguous(),
+                                    med_idx, n_contrib, *ctx.size)
+            with trace.span("raster.reduce"):
+                d_packed = reduce_slot_grads(d_slots, bins, packed.shape[0])
+        return d_packed, None, None, None, None
 
 
 def bin_preprocessed(pre: PreprocessOut, width: int, height: int,
@@ -97,10 +101,11 @@ def bin_preprocessed(pre: PreprocessOut, width: int, height: int,
     is False: the cull reads (A, B, C) and rho2max, detached."""
     cull_abc = tuple(x.detach() for x in (pre.A, pre.B, pre.C)) \
         if cull else None
-    return bin_gaussians(pre.center2d, pre.extent, pre.depth, pre.visible,
-                         width, height, cull_abc=cull_abc,
-                         rho2max=pre.rho2max.detach() if cull else None,
-                         row0=row0)
+    with trace.span("raster.bin"):
+        return bin_gaussians(pre.center2d, pre.extent, pre.depth,
+                             pre.visible, width, height, cull_abc=cull_abc,
+                             rho2max=pre.rho2max.detach() if cull else None,
+                             row0=row0)
 
 
 def rasterize(pre: PreprocessOut, width: int, height: int,
@@ -121,8 +126,9 @@ def rasterize(pre: PreprocessOut, width: int, height: int,
     GPUs' render, ``parallel/data_parallel.py``).
     """
     bins = bin_preprocessed(pre, width, height, cull, row0)
-    out_tiles, med_idx, n_contrib = _Composite.apply(
-        pack_entries(pre), bins, width, height, row0)
-    return untile(out_tiles, width, height), {
-        "num_pairs": bins.num_pairs, "med_idx": med_idx,
-        "n_contrib": n_contrib}
+    with trace.span("raster.composite_fwd"):
+        out_tiles, med_idx, n_contrib = _Composite.apply(
+            pack_entries(pre), bins, width, height, row0)
+        out = untile(out_tiles, width, height)
+    return out, {"num_pairs": bins.num_pairs, "med_idx": med_idx,
+                 "n_contrib": n_contrib}

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ...utils import trace
 from .common import FILTER_INV_SQUARE, TILE_H, TILE_W, cdiv
 
 
@@ -239,6 +240,7 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
     rows = torch.where(visible, torch.clamp(ty1 - ty0, min=0), 0)[order]
 
     # level 1: (gaussian, tile row) entries, Gaussians in depth order
+    trace.count("sync")
     R = int(rows.sum())
     rank_r = torch.repeat_interleave(torch.arange(N, device=dev), rows,
                                      output_size=R)
@@ -255,6 +257,7 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
         0, rank_r, w)
 
     # level 2: (gaussian, tile) pairs, each row's tiles left to right
+    trace.count("sync")
     P = int(counts.sum())
     row_p = torch.repeat_interleave(w, output_size=P)
     first_p = torch.cumsum(w, 0) - w
@@ -264,6 +267,7 @@ def bin_gaussians(center2d: torch.Tensor, extent: torch.Tensor,
 
     _, perm = torch.sort(tile * N + rank_p)
     gid = order[rank_p[perm]].to(torch.int32)
+    trace.count("sync", 2)               # bincount reads the keys' min, max
     tile_count = torch.bincount(tile, minlength=T)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
     return BinningOut(gid=gid, tile_start=tile_start.to(torch.int32),

@@ -23,6 +23,7 @@ import torch
 from ..quat import normalize_quat, quat_to_rotmat
 from ..sh import eval_sh
 from ..transforms import ndc_to_pix_matrix
+from ...utils import trace
 from .common import (ALPHA_CUTOFF, CULL_MARGIN, FILTER_INV_SQUARE, NEAR_N,
                      SIGMA_CUTOFF)
 
@@ -71,6 +72,9 @@ def preprocess(
     su = scales[..., 0:1] * scale_modifier
     sv = scales[..., 1:2] * scale_modifier
 
+    # two copies from pageable host memory (the matrix, the column
+    # index), each of which waits for the stream
+    trace.count("sync", 2)
     ndc2pix = torch.as_tensor(ndc_to_pix_matrix(width, height),
                               dtype=means3d.dtype, device=means3d.device)
     world2pix = full_proj @ ndc2pix                      # row-vector

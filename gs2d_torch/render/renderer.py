@@ -24,6 +24,7 @@ from ..ops.rasterize.preprocess import PreprocessOut, preprocess
 from ..parallel.data_parallel import rasterize_sharded
 from ..parallel.gaussian_parallel import gather_records, has_gauss_axis
 from ..scene.cameras import Camera
+from ..utils import trace
 
 
 def prepare(camera: Camera, state: GaussianState, *, max_sh_degree: int = 3,
@@ -119,20 +120,25 @@ def render(camera: Camera, state: GaussianState, bg: torch.Tensor, *,
     for name, x in tensors:
         if x is not None and x.device.type != device.type:
             raise ValueError(f"render on {device}: {name} is on {x.device}")
-    pre = prepare(camera, state, max_sh_degree=max_sh_degree,
-                  scaling_modifier=scaling_modifier,
-                  override_color=override_color, noise=noise,
-                  screen_offsets=screen_offsets)
-    records = pre
-    if grid is not None:
-        if group is not None:
-            raise ValueError("render takes a group or a grid, not both")
-        group = grid.group
-        if has_gauss_axis(grid):
-            records = gather_records(pre, grid)
-    if group is None:
-        out, aux = rasterize(pre, camera.width, camera.height, cull=cull)
-    else:
-        out, aux = rasterize_sharded(records, camera.width, camera.height,
-                                     group, cull=cull)
-    return bridge(camera, pre, out, aux, bg, depth_ratio)
+    with trace.span("render"):
+        with trace.span("render.prepare"):
+            pre = prepare(camera, state, max_sh_degree=max_sh_degree,
+                          scaling_modifier=scaling_modifier,
+                          override_color=override_color, noise=noise,
+                          screen_offsets=screen_offsets)
+        records = pre
+        if grid is not None:
+            if group is not None:
+                raise ValueError("render takes a group or a grid, not "
+                                 "both")
+            group = grid.group
+            if has_gauss_axis(grid):
+                records = gather_records(pre, grid)
+        if group is None:
+            out, aux = rasterize(pre, camera.width, camera.height,
+                                 cull=cull)
+        else:
+            out, aux = rasterize_sharded(records, camera.width,
+                                         camera.height, group, cull=cull)
+        with trace.span("render.bridge"):
+            return bridge(camera, pre, out, aux, bg, depth_ratio)

@@ -39,6 +39,7 @@ from ..parallel.multihost import (global_gt_from_local_rows, is_main_process,
 from ..scene.scene import Scene
 from ..train.optim import FIELDS, init_adam
 from ..train.step import TrainState, make_train_step
+from ..utils import trace
 
 
 def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
@@ -65,7 +66,9 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
     and, every 500 on the card, ``peak_hbm_gb``;
     ``report_fn(iteration, ts, scene)`` runs at ``test_iterations``;
     ``profile_dir`` receives a ``torch.profiler`` trace of iterations
-    50–60; ``viewer_fn(iteration, ts, ema)`` runs after every iteration.
+    50–60 (``trace.json``) and the spans and counters of
+    ``utils/trace.py`` recorded over them (``spans.json``);
+    ``viewer_fn(iteration, ts, ema)`` runs after every iteration.
     With a ``group`` they run on its first rank only, as do the saves.
     """
     device = torch.device(device)
@@ -111,12 +114,13 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
 
     for iteration in range(first_iter + 1, opt.iterations + 1):
         if profile_dir and io_ok and iteration == 50:
-            prof = _start_profiler(device)
+            prof = trace.profiler(device)
         if prof is not None and iteration == 60:
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir,
                                                   "trace.json"))
+            trace.write(os.path.join(profile_dir, "spans.json"))
             prof = None
         if not stack:
             stack = list(range(len(cams)))
@@ -125,22 +129,27 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
         # ground truth stays on the device across epochs, up to the budget
         gt = gt_cache.get(cam_idx)
         if gt is None:
-            if multihost:
-                # rank-local IO: upload only this rank's row band
-                h = cam_data.image.shape[1]
-                r0, r1 = local_row_range(h, group)
-                gt = global_gt_from_local_rows(torch.as_tensor(
-                    cam_data.image[:, r0:r1], dtype=torch.float32,
-                    device=device), h, group)
-            else:
-                gt = torch.as_tensor(cam_data.image, dtype=torch.float32,
-                                     device=device)
-            nbytes = gt.numel() * gt.element_size()
-            if gt_cache_bytes + nbytes <= rt.gt_cache_budget:
-                gt_cache[cam_idx] = gt
-                gt_cache_bytes += nbytes
+            with trace.span("loop.gt_upload"):
+                trace.count("gt.upload")
+                # a copy from pageable host memory waits for the stream
+                trace.count("sync")
+                if multihost:
+                    # rank-local IO: upload only this rank's row band
+                    h = cam_data.image.shape[1]
+                    r0, r1 = local_row_range(h, group)
+                    gt = global_gt_from_local_rows(torch.as_tensor(
+                        cam_data.image[:, r0:r1], dtype=torch.float32,
+                        device=device), h, group)
+                else:
+                    gt = torch.as_tensor(cam_data.image, dtype=torch.float32,
+                                         device=device)
+                nbytes = gt.numel() * gt.element_size()
+                if gt_cache_bytes + nbytes <= rt.gt_cache_budget:
+                    gt_cache[cam_idx] = gt
+                    gt_cache_bytes += nbytes
 
-        ts, metrics = step(ts, cam_data.camera, gt, iteration, bg)
+        with trace.span("loop.step"):
+            ts, metrics = step(ts, cam_data.camera, gt, iteration, bg)
 
         # densification schedule (reference train.py:126-135)
         if iteration < opt.densify_until_iter:
@@ -164,6 +173,7 @@ def train(model: ModelParams, opt: OptimizationParams, pipe: PipelineParams,
 
         # one host read of the loss terms every 10 iterations
         if iteration % 10 == 0:
+            trace.count("sync")
             loss, dist, normal = torch.stack(
                 [metrics["loss"], metrics["dist_loss"],
                  metrics["normal_loss"]]).tolist()
@@ -214,13 +224,3 @@ def _replicated(ts: TrainState) -> list:
             + [getattr(ts.opt.mu, f) for f in FIELDS]
             + [getattr(ts.opt.nu, f) for f in FIELDS]
             + [g.max_radii2d, g.grad_accum, g.denom])
-
-
-def _start_profiler(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof

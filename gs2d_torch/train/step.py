@@ -38,6 +38,7 @@ from ..parallel.data_parallel import all_reduce_sum
 from ..parallel.gaussian_parallel import has_gauss_axis
 from ..render.renderer import render
 from ..scene.cameras import Camera
+from ..utils import trace
 from ..utils.general import expon_lr
 from .optim import FIELDS, AdamState, adam_step, make_lrs
 
@@ -89,8 +90,10 @@ def loss_and_grads(state: GaussianState, camera: Camera,
         max_sh_degree=max_sh_degree, screen_offsets=offsets,
         depth_ratio=depth_ratio, cull=cull, device=device, group=group,
         grid=grid)
-    total, terms = compute_losses(pkg, gt_image, iteration, opt_cfg)
-    grads = torch.autograd.grad(total, list(leaves.values()) + [offsets])
+    with trace.span("step.losses"):
+        total, terms = compute_losses(pkg, gt_image, iteration, opt_cfg)
+    with trace.span("step.backward"):
+        grads = torch.autograd.grad(total, list(leaves.values()) + [offsets])
     return (total.detach(), {k: v.detach() for k, v in terms.items()},
             GaussianParams(*grads[:-1]), grads[-1], pkg)
 
@@ -160,8 +163,9 @@ def make_train_step(opt_cfg: OptimizationParams, *, max_sh_degree: int = 3,
                        opacity_lr=opt_cfg.opacity_lr,
                        scaling_lr=opt_cfg.scaling_lr,
                        rotation_lr=opt_cfg.rotation_lr)
-        new_ts = apply_update(gs, ts.opt, grads, screen_grads, pkg["radii"],
-                              camera, lrs)
+        with trace.span("step.update"):
+            new_ts = apply_update(gs, ts.opt, grads, screen_grads,
+                                  pkg["radii"], camera, lrs)
         metrics = {"total_loss": total, **terms,
                    "num_points": gs.params.xyz.shape[0],
                    "num_pairs": pkg["num_pairs"], "xyz_lr": xyz_lr}

@@ -7,6 +7,7 @@ only PyTorch and CUDA (tests/conftest.py imports JAX, hence
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import json
 import math
 
 import numpy as np
@@ -337,6 +338,44 @@ def test_train_step_cuda_matches_cpu(cuda):
     assert torch.equal(ts_c.gaussians.denom.cpu(), ts_h.gaussians.denom)
     assert torch.equal(ts_c.gaussians.max_radii2d.cpu(),
                        ts_h.gaussians.max_radii2d)
+
+
+def test_spans_on_the_card(cuda, tmp_path):
+    """A traced step on the card: every stage's span once, the backward's
+    (opened on autograd's thread) under ``step.backward``, device times
+    from the span's events, resolved after the step with no sync inside
+    it, and a device self time within its total."""
+    from gs2d_torch.utils import trace
+    cam, state = _state(cuda)
+    gt = torch.rand((3, cam.height, cam.width), device=cuda)
+    bg = torch.zeros(3, device=cuda)
+    step = make_train_step(OptimizationParams(), device=cuda)
+    ts = TrainState(gaussians=state, opt=init_adam(state.params))
+    step(ts, cam, gt, 8000, bg)
+    trace.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        step(ts, cam, gt, 8000, bg)
+    torch.cuda.synchronize()
+    s = trace.summary()
+    assert {k: v["calls"] for k, v in s["spans"].items()} == {
+        k: 1 for k in ("render", "render.prepare", "raster.bin",
+                       "raster.composite_fwd", "render.bridge",
+                       "step.losses", "step.backward",
+                       "raster.composite_bwd", "raster.reduce",
+                       "step.update")}
+    trace.write(str(tmp_path / "spans.json"))
+    recs = json.loads((tmp_path / "spans.json").read_text())["records"]
+    parent = {r["name"]: recs[r["parent"]]["name"] for r in recs
+              if r["parent"] is not None}
+    assert parent["raster.composite_bwd"] == "step.backward"
+    assert parent["raster.reduce"] == "raster.composite_bwd"
+    for name, v in s["spans"].items():
+        assert v["device_s"] > 0, name
+        assert -1e-5 <= v["device_self_s"] <= v["device_s"], name
+    assert s["spans"]["step.backward"]["device_s"] \
+        >= s["spans"]["raster.composite_bwd"]["device_s"]
 
 
 def _densify_inputs(dev, n=20_000, seed=3):
