@@ -33,9 +33,9 @@ binning's interval cull on, the default:
 5. full width, render path: the 1M-splat trained-like scene at SH degree
    3, 1920x1080, rendered from several views of an orbit around the
    benchmark camera. Outputs must be finite with real alpha coverage, K1
-   must run once per view, and sampled tiles and all of view 0 must agree
-   with the plain version. Per view: pairs, stage times (CUDA events) and
-   peak memory; at view 0 K1's pair counts (evaluated, warp-padded,
+   and P1 must run once per view, and sampled tiles and all of view 0
+   must agree with the plain version. Per view: pairs, stage times (CUDA
+   events) and peak memory; at view 0 K1's pair counts (evaluated, warp-padded,
    tile-padded, the slot ceiling and composited, the last from the plain
    version), and what the kernels' row test and per-pixel skip leave of
    them, counted with their plain twins, which must never drop a pair the
@@ -43,7 +43,7 @@ binning's interval cull on, the default:
 6. full width, training: WARMUP_STEPS and TRAIN_STEPS timed steps of
    ``train_step`` at the bench.py train-step point (view 0, lambda_dist
    10, depth_ratio 1, iteration 8000, ground truth from default_rng(1)).
-   K1 and K2 must run once per step, every gradient, parameter and
+   K1, K2, P1 and P2 must run once per step, every gradient, parameter and
    statistic must be finite and ``denom`` must grow on exactly the visible
    Gaussians. Per step: step and stage times (CUDA events), loss terms and
    peak memory; one profiled step; two backward passes bit-identical; K2
@@ -58,6 +58,15 @@ binning's interval cull on, the default:
    un-culled and, at view 0, than CULL_PAIRS_MAX; at the step's view 0,
    TRAIN_STEPS un-culled steps (ms, the reduction's ms, peak GiB), one
    traced step's device-busy ms, and K2 (mean of 20), beside phase 6's;
+7b. the preprocess kernels (P1 ``preprocess_fwd``, P2
+   ``preprocess_bwd``) against their plain versions on the card at the
+   benchmark's two scenes (perfbench's generator: 3.0M surfels outdoors,
+   1.5M indoors, SH 3, a training step's screen offsets, each scene's
+   first test view): visible and radii identical, every record field,
+   depth, extent and rho2max within 1e-6 of the field's largest
+   magnitude, every gradient within 1e-5 of its leaf's; each kernel's ms
+   (mean of 20), the plain version's (mean of 3), the byte bound at
+   3.35 TB/s (``preprocess_phase``);
 8. small loop: the card twin of tests/test_loop_e2e.py,
    300 iterations of ``train()`` on three 64x32 views from 12 points;
    densification must grow N past 12, every logged loss be finite and
@@ -184,6 +193,8 @@ binning's interval cull on, the default:
    is one, ptxas's report and the bound computed from this run's inputs
    (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32; K1's and K2's operations
    on their composited pairs, the pair counts under ``bound_detail``);
+   on every path through render() and the train step P1 must launch as
+   often as K1 and P2 as often as K2;
 18. the card line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -624,8 +635,7 @@ def full_width(report, state):
         render(cams[0], state, bg)                       # warm-up
         torch.cuda.synchronize()
         # --- the main path: counts from zero, views through render() ----
-        kernel_fwd.rasterize_fwd.launches = 0
-        kernel_bwd.rasterize_bwd.launches = 0
+        zero_counts()
         outs = []
         for cam in cams:
             torch.cuda.reset_peak_memory_stats()
@@ -635,12 +645,14 @@ def full_width(report, state):
             outs[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             outs[-1]["peak_above_start_gib"] = (
                 torch.cuda.max_memory_allocated() - base) / 2**30
-        launches = kernel_fwd.rasterize_fwd.launches
-        if launches != len(cams) or kernel_bwd.rasterize_bwd.launches:
-            raise AssertionError(f"rasterize_fwd launched {launches} times "
-                                 f"for {len(cams)} views, rasterize_bwd "
-                                 f"{kernel_bwd.rasterize_bwd.launches}")
-        report["launches_by_path"] = {"render": launches}
+        counts = read_counts()
+        if counts["rasterize_fwd"] != len(cams) \
+                or counts["preprocess_fwd"] != len(cams) \
+                or counts["rasterize_bwd"] or counts["preprocess_bwd"]:
+            raise AssertionError(f"{len(cams)} views through render() "
+                                 f"launched {counts}")
+        report["launches_by_path"] = {"render": counts["rasterize_fwd"]}
+        report["render_counts"] = counts
 
         # --- checks and per-stage times, view by view ---------------------
         err, n_eval, inputs0 = 0.0, 0, None
@@ -1009,7 +1021,7 @@ def full_train(report, state):
     import torch
 
     from gs2d_torch.config import OptimizationParams
-    from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.ops.rasterize import kernel_bwd
     from gs2d_torch.train.optim import FIELDS, init_adam
     from gs2d_torch.train.step import (TrainState, loss_and_grads,
                                        make_train_step)
@@ -1026,14 +1038,12 @@ def full_train(report, state):
     torch.cuda.synchronize()
 
     # --- the main path: counts from zero, TRAIN_STEPS steps ---------------
-    kernel_fwd.rasterize_fwd.launches = 0
-    kernel_bwd.rasterize_bwd.launches = 0
+    zero_counts()
     step_ms, red_ms, peak = [], [], 0.0
     with StageMarks() as marks:
         for i in range(TRAIN_STEPS):
             torch.cuda.reset_peak_memory_stats()
-            before = (kernel_fwd.rasterize_fwd.launches,
-                      kernel_bwd.rasterize_bwd.launches)
+            before = step_counts()
             denom0 = ts.gaussians.denom
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1044,11 +1054,11 @@ def full_train(report, state):
             host_ms = (time.perf_counter() - t0) * 1e3
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
-            counts = (kernel_fwd.rasterize_fwd.launches - before[0],
-                      kernel_bwd.rasterize_bwd.launches - before[1])
-            if counts != (1, 1):
+            counts = tuple(a - b for a, b in zip(step_counts(), before))
+            if counts != (1, 1, 1, 1):
                 raise AssertionError(f"step {i}: rasterize_fwd, "
-                                     f"rasterize_bwd launched {counts}")
+                                     f"rasterize_bwd, preprocess_fwd, "
+                                     f"preprocess_bwd launched {counts}")
             # finite gradients, parameters and statistics; denom grows by
             # one exactly on the Gaussians visible in this step
             args, _ = marks.seen["apply_update"]
@@ -1080,10 +1090,11 @@ def full_train(report, state):
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             print("train " + json.dumps(line), flush=True)
         bwd_args = marks.seen["rasterize_bwd"][0]
-    launches = kernel_bwd.rasterize_bwd.launches
-    report["launches"] = launches
-    report["launches_by_path"] = {"train_step": launches}
-    report["fwd_launches_train"] = kernel_fwd.rasterize_fwd.launches
+    counts = read_counts()
+    report["launches"] = counts["rasterize_bwd"]
+    report["launches_by_path"] = {"train_step": counts["rasterize_bwd"]}
+    report["fwd_launches_train"] = counts["rasterize_fwd"]
+    report["train_counts"] = counts
     report["step_ms"] = sum(step_ms) / len(step_ms)
     report["card_steps_per_s"] = 1e3 / report["step_ms"]
     report["reduction_ms"] = sum(red_ms) / len(red_ms)
@@ -1169,6 +1180,93 @@ def slot_gids(idx, gid, tile_start):
         return torch.full_like(idx, -1, dtype=torch.int64)
     at = (tile_start.long()[:, None] + idx.long()).clamp(0, gid.numel() - 1)
     return torch.where(idx >= 0, gid.long()[at], -1)
+
+
+PRE_LEAVES = ("xyz", "scaling", "rotation", "opacity", "features_dc",
+              "features_rest", "colors", "noise", "screen_offsets")
+
+
+def preprocess_phase(pf, pb):
+    """Phase 7b (see the module docstring). Fills P1's report ``pf`` and
+    P2's ``pb``; raises past either bar."""
+    import torch
+
+    from gs2d_torch.ops.rasterize import preprocess as pp
+    from gs2d_torch.scene.cameras import make_camera
+    from perfbench import scene as scenes
+
+    dev = torch.device("cuda")
+    f0, b0 = pp.preprocess_fwd.launches, pp.preprocess_bwd.launches
+    runs = {}
+    for name in ("m360-outdoor", "m360-indoor"):
+        cfg = json.loads((ROOT / "perfbench" / "configs"
+                          / f"{name}.json").read_text())
+        p = scenes.make_params(cfg, 20261018, dev)
+        n = p["xyz"].shape[0]
+        p["screen_offsets"] = torch.zeros((n, 2), device=dev)
+        rig = scenes.make_rig(cfg)
+        v = rig.views[rig.test[0]]
+        cam = make_camera(v.R, v.t, v.fovx, v.fovy, v.width, v.height,
+                          device=dev)
+        args = [p.get(f) for f in PRE_LEAVES] + [
+            cam.world_view, cam.full_proj, cam.campos, cam.width,
+            cam.height]
+        kw = {"sh_degree": int(cfg["sh_degree"])}
+        got = pp.preprocess_fwd(*args, **kw)
+        want = pp.preprocess_fwd_reference(*args, **kw)
+        mism = {"radii": int((got[3] != want[3]).sum()),
+                "visible": int((got[4] != want[4]).sum())}
+        err = float(((got[0] - want[0]).abs().amax(0)
+                     / want[0].abs().amax(0).clamp(min=1e-30)).max())
+        for k in (1, 2, 5):
+            fin = torch.isfinite(want[k])
+            err = max(err, float((got[k][fin] - want[k][fin]).abs().max()
+                                 / want[k][fin].abs().max()))
+        cot = torch.randn(got[0].shape, device=dev, generator=torch.Generator(
+            dev).manual_seed(5))
+        g_k = pp.preprocess_bwd(cot, *args, **kw)
+        g_p = pp.preprocess_bwd_reference(cot, *args, **kw)
+        gerr = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(g_k, g_p) if a is not None)
+        if any(mism.values()) or err > 1e-6 or gerr > 1e-5:
+            raise AssertionError(f"preprocess kernels at {name}: "
+                                 f"mismatches {mism}, record error {err}, "
+                                 f"gradient error {gerr}")
+        del want, g_p
+        ins = sum(x.numel() * 4 for x in args[:9] if x is not None)
+        outs = n * (96 + 4 + 8 + 4 + 1 + 4)
+        grads = sum(x.numel() * 4 for x in g_k if x is not None)
+        runs[name] = {
+            "n": n, "err": err, "grad_err": gerr,
+            "ms": cuda_ms(lambda: pp.preprocess_fwd(*args, **kw), 20),
+            "bwd_ms": cuda_ms(lambda: pp.preprocess_bwd(cot, *args, **kw),
+                              20),
+            "plain_ms": cuda_ms(
+                lambda: pp.preprocess_fwd_reference(*args, **kw), 3),
+            "plain_bwd_ms": cuda_ms(
+                lambda: pp.preprocess_bwd_reference(cot, *args, **kw), 3),
+            "bound_ms": (ins + outs) / 3.35e12 * 1e3,
+            "bwd_bound_ms": (cot.numel() * 4 + ins + grads) / 3.35e12 * 1e3}
+        print(f"preprocess kernels at {name}: {json.dumps(runs[name])}",
+              flush=True)
+        del p, args, got, g_k, cot
+        torch.cuda.empty_cache()
+    out, ind = runs["m360-outdoor"], runs["m360-indoor"]
+    pf.update({"max_abs_err": max(r["err"] for r in runs.values()),
+               "ms": out["ms"], "ms_indoor": ind["ms"],
+               "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
+               "bound_by": "bytes",
+               "bound_detail": {k: {"n": r["n"], "bound_ms": r["bound_ms"]}
+                                for k, r in runs.items()}})
+    pb.update({"max_abs_err": max(r["grad_err"] for r in runs.values()),
+               "ms": out["bwd_ms"], "ms_indoor": ind["bwd_ms"],
+               "plain_ms": out["plain_bwd_ms"],
+               "bound_ms": out["bwd_bound_ms"], "bound_by": "bytes",
+               "bound_detail": {k: {"n": r["n"],
+                                    "bound_ms": r["bwd_bound_ms"]}
+                                for k, r in runs.items()}})
+    pf["phase_launches"] = pp.preprocess_fwd.launches - f0
+    pb["phase_launches"] = pp.preprocess_bwd.launches - b0
 
 
 def cull_phase(fwd, bwd, state):
@@ -1391,7 +1489,7 @@ def scale_phase(report, fwd, bwd, gat):
     from gs2d_torch.cli import bench, bench_scale
     from gs2d_torch.ops.gather import gather_rows, gather_rows_reference
     from gs2d_torch.ops.rasterize import api
-    from gs2d_torch.ops.rasterize.preprocess import preprocess
+    from gs2d_torch.ops.rasterize.preprocess import preprocess_packed
     from gs2d_torch.utils.bench_scenes import make_trained_like_scene
 
     out = ROOT / "build" / "chip_smoke" / "bench_scale.jsonl"
@@ -1409,7 +1507,8 @@ def scale_phase(report, fwd, bwd, gat):
     recs = [json.loads(x) for x in out.read_text().splitlines()]
     calls = bench.WARMUP + SCALE_ITERS
     per_n = {"rasterize_fwd": 3 * calls + 1, "rasterize_bwd": 2 * calls,
-             "gather_rows": calls}
+             "gather_rows": calls, "preprocess_fwd": 3 * calls + 1,
+             "preprocess_bwd": calls}
     bad = [r for r in recs
            if r.get("kernel_launches") != per_n
            or not all(isinstance(r.get(k), (int, float))
@@ -1417,8 +1516,8 @@ def scale_phase(report, fwd, bwd, gat):
                       for k in SCALE_TIMES)
            or not 0 < r["num_pairs"] <= r["num_pairs_uncull"]]
     if rc != 0 or [r.get("n_gaussians") for r in recs] != list(SCALE_NS) \
-            or bad or counts != {k: v * len(SCALE_NS)
-                                 for k, v in per_n.items()}:
+            or bad or counts != {k: per_n[k] * len(SCALE_NS)
+                                 for k in counts}:
         raise AssertionError(f"bench_scale: rc {rc}, launches {counts}, "
                              f"records {recs}")
     cam = bench_camera()
@@ -1426,8 +1525,11 @@ def scale_phase(report, fwd, bwd, gat):
         m, sc, q, o, c = (torch.as_tensor(x, device="cuda")
                           for x in make_trained_like_scene(r["n_gaussians"]))
         with torch.no_grad():
-            pre = preprocess(m, sc, q, o, cam.world_view, cam.full_proj,
-                             cam.campos, WIDTH, HEIGHT, colors=c)
+            # the scale run's own preprocess: the render's, on the logs
+            pre = preprocess_packed(m, torch.log(sc), q,
+                                    torch.logit(o)[:, None], cam.world_view,
+                                    cam.full_proj, cam.campos, WIDTH, HEIGHT,
+                                    colors=c)
             pairs = api.bin_preprocessed(pre, WIDTH, HEIGHT).num_pairs
         if r["num_pairs"] != pairs:
             raise AssertionError(f"bench_scale N={r['n_gaussians']}: "
@@ -1763,22 +1865,20 @@ class LoopProbe:
     def _make_train_step(self, *args, **kw):
         import torch
 
-        from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
         step = self.saved["make_train_step"](*args, **kw)
 
         def probed(ts, camera, gt, iteration, bg):
-            k1 = kernel_fwd.rasterize_fwd.launches
-            k2 = kernel_bwd.rasterize_bwd.launches
+            before = step_counts()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             ts, metrics = step(ts, camera, gt, iteration, bg)
             end.record()
-            counts = (kernel_fwd.rasterize_fwd.launches - k1,
-                      kernel_bwd.rasterize_bwd.launches - k2)
-            if counts != (1, 1):
+            counts = tuple(a - b for a, b in zip(step_counts(), before))
+            if counts != (1, 1, 1, 1):
                 raise AssertionError(f"iteration {iteration}: rasterize_fwd, "
-                                     f"rasterize_bwd launched {counts}")
+                                     f"rasterize_bwd, preprocess_fwd, "
+                                     f"preprocess_bwd launched {counts}")
             self.steps.append((int(iteration), start, end,
                                metrics["num_pairs"], metrics["num_points"]))
             return ts, metrics
@@ -2217,17 +2317,31 @@ def hold_bwd(args, seed, what):
 def zero_counts():
     from gs2d_torch.ops.gather import gather_rows
     from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.ops.rasterize import preprocess as pp
     kernel_fwd.rasterize_fwd.launches = 0
     kernel_bwd.rasterize_bwd.launches = 0
     gather_rows.launches = 0
+    pp.preprocess_fwd.launches = 0
+    pp.preprocess_bwd.launches = 0
 
 
 def read_counts() -> dict:
     from gs2d_torch.ops.gather import gather_rows
     from gs2d_torch.ops.rasterize import kernel_bwd, kernel_fwd
+    from gs2d_torch.ops.rasterize import preprocess as pp
     return {"rasterize_fwd": kernel_fwd.rasterize_fwd.launches,
             "rasterize_bwd": kernel_bwd.rasterize_bwd.launches,
-            "gather_rows": gather_rows.launches}
+            "gather_rows": gather_rows.launches,
+            "preprocess_fwd": pp.preprocess_fwd.launches,
+            "preprocess_bwd": pp.preprocess_bwd.launches}
+
+
+def step_counts() -> tuple:
+    """K1, K2, P1 and P2 launches so far, for the per-step checks: one
+    train step launches each once."""
+    c = read_counts()
+    return tuple(c[k] for k in ("rasterize_fwd", "rasterize_bwd",
+                                "preprocess_fwd", "preprocess_bwd"))
 
 
 def codec_times(path: str, work: Path) -> dict:
@@ -4354,6 +4468,15 @@ def main() -> int:
     full_width(fwd, state)
     full_train(bwd, state)
     cull_phase(fwd, bwd, state)
+    pf = {"name": "preprocess_fwd", "route": "cuda",
+          "source": "gs2d_torch/csrc/preprocess_fwd.cu",
+          "replaces": "none: the JAX package leaves this layer to XLA",
+          "library_ms": None, "ptxas": ptxas.get("preprocess_fwd")}
+    pb = {"name": "preprocess_bwd", "route": "cuda",
+          "source": "gs2d_torch/csrc/preprocess_bwd.cu",
+          "replaces": "none: the JAX package leaves this layer to XLA",
+          "library_ms": None, "ptxas": ptxas.get("preprocess_bwd")}
+    preprocess_phase(pf, pb)
     n, losses, p0, p1 = small_loop()
     if n <= 12 or not all(math.isfinite(x) for x in losses) \
             or not p1 > p0 + 2.0:
@@ -4458,9 +4581,41 @@ def main() -> int:
                        "card_steps_per_s", "bands")
     gat_keys = keys + ("wrapper_ms", "replaces_also", "probe_shape",
                        "densify")
+    # P1 and P2 on the paths that go through render() and the train step:
+    # P1 once per K1 launch (one per view and one per step), P2 once per
+    # K2 launch (one per step); counted from zero in each phase, as K1's
+    through_render = {
+        "render": fwd.pop("render_counts"),
+        "train_step": bwd.pop("train_counts"),
+        "loop": loop["launches"],
+        "data_path_train": dpath["train_counts"],
+        "data_path_render": dpath["render_counts"],
+        "eval": ev["counts"], "ig2g": ig["counts"],
+        "nccl_step": par["nccl_counts"],
+        "torchrun_train": par["torchrun_counts"],
+        "viewer": vw["viewer_counts"],
+        "synthetic_scene": lm["synthetic"]["counts"],
+        "render_all": lm["render_all"]["counts"],
+        "run_all": lm["run_all"]["counts"],
+        "readout": lm["readout"]["counts"]}
+    odd = {path: c for path, c in through_render.items()
+           if (c["preprocess_fwd"], c["preprocess_bwd"])
+           != (c["rasterize_fwd"], c["rasterize_bwd"])}
+    if odd:
+        raise AssertionError(f"P1, P2 launches differ from K1's, K2's: {odd}")
+    for rep, key in ((pf, "preprocess_fwd"), (pb, "preprocess_bwd")):
+        rep["launches_by_path"] = {
+            "preprocess_phase": rep.pop("phase_launches"),
+            **{path: c[key] for path, c in through_render.items() if c[key]},
+            "bench": bench["kernel_launches"][key],
+            "bench_scale": scale["counts"][key]}
+        rep["launches"] = sum(rep["launches_by_path"].values())
+    pre_keys = tuple(k for k in keys if k != "scale_ms") + ("ms_indoor",)
     print(json.dumps({"kernels": [{k: fwd[k] for k in fwd_keys},
                                   {k: bwd[k] for k in bwd_keys},
-                                  {k: gat[k] for k in gat_keys}]}))
+                                  {k: gat[k] for k in gat_keys},
+                                  {k: pf[k] for k in pre_keys},
+                                  {k: pb[k] for k in pre_keys}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,11 @@ wrapper's count; a fresh process starts them at zero).
 
 - Headline (``bench.py:84-122``): ``make_trained_like_scene(n)`` at
   ``width`` × ``height`` from the 70° camera 3 units out on +z,
-  ``preprocess(..., colors=rgb)`` then ``rasterize`` with the interval
-  cull on, the loss ``sum(out · ones)``, gradients to means, scales,
-  quats, opacities and colours, each step chained as ``a − 1e-12·g``;
+  ``preprocess_packed(..., colors=rgb)`` (the render's preprocess, on the
+  scales' logs and the opacities' logits) then ``rasterize`` with the
+  interval cull on, the loss ``sum(out · ones)``, gradients to means,
+  log-scales, quats, opacity logits and colours, each step chained as
+  ``a − 1e-12·g``;
   2 warm-up steps, then ``iters`` timed. value = width·height / seconds
   per step.
 - ``train_step_it_per_s`` (``bench.py:125-197``): ``make_train_step``
@@ -137,22 +139,25 @@ def measure(scene, width, height, n_iters, device):
     """rays/s of chained forward+backward steps on (means, scales, quats,
     opacity, rgb)."""
     from ..ops.rasterize.api import rasterize
-    from ..ops.rasterize.preprocess import preprocess
+    from ..ops.rasterize.preprocess import preprocess_packed
 
     cam = bench_camera(width, height, device)
     cot = torch.ones((15, height, width), device=device)
 
     def step(arrays):
         leaves = [a.detach().requires_grad_() for a in arrays]
-        means, scales, quats, opac, rgb = leaves
-        pre = preprocess(means, scales, quats, opac, cam.world_view,
-                         cam.full_proj, cam.campos, width, height,
-                         colors=rgb)
+        means, scaling, quats, logit, rgb = leaves
+        pre = preprocess_packed(means, scaling, quats, logit, cam.world_view,
+                                cam.full_proj, cam.campos, width, height,
+                                colors=rgb)
         out, _ = rasterize(pre, width, height)
         grads = torch.autograd.grad(torch.sum(out * cot), leaves)
         return [a.detach() - 1e-12 * g for a, g in zip(leaves, grads)]
 
-    arrays = [torch.as_tensor(x, device=device) for x in scene]
+    means, scales, quats, opac, rgb = (torch.as_tensor(x, device=device)
+                                       for x in scene)
+    arrays = [means, torch.log(scales), quats, torch.logit(opac)[:, None],
+              rgb]
     return width * height / timed_loop(step, arrays, n_iters, device)
 
 
@@ -181,10 +186,12 @@ def measure_train_step(n, width, height, n_iters, device):
 
 def kernel_launches():
     from ..ops.gather import gather_rows
-    from ..ops.rasterize import kernel_bwd, kernel_fwd
+    from ..ops.rasterize import kernel_bwd, kernel_fwd, preprocess
     return {"rasterize_fwd": kernel_fwd.rasterize_fwd.launches,
             "rasterize_bwd": kernel_bwd.rasterize_bwd.launches,
-            "gather_rows": gather_rows.launches}
+            "gather_rows": gather_rows.launches,
+            "preprocess_fwd": preprocess.preprocess_fwd.launches,
+            "preprocess_bwd": preprocess.preprocess_bwd.launches}
 
 
 def parse_args(argv):

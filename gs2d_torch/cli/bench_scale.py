@@ -11,7 +11,8 @@ stays as it is): per N, ``make_trained_like_scene(N)`` at ``width`` ×
 +z), the interval cull on, and one JSON line with that script's keys, its
 stages mapped onto the port's layers:
 
-- ``t_preprocess_ms``: ``preprocess(..., colors=rgb)``;
+- ``t_preprocess_ms``: ``preprocess_packed(..., colors=rgb)``, the
+  render's preprocess, on the scales' logs and the opacities' logits;
 - ``t_binning_ms``: ``api.bin_preprocessed`` with the cull on. Binning
   reads sizes back to the host, so its CUDA-event time includes the
   device's idle time while the host waits, as a user pays it;
@@ -23,10 +24,12 @@ stages mapped onto the port's layers:
 - ``t_bwd_kernel_ms``: K2, ``kernel_bwd.rasterize_bwd`` on K1's outputs
   and a ones cotangent;
 - ``t_bwd_glue_ms``: ``api.reduce_slot_grads`` of ones slot rows;
-- ``t_e2e_fwd_ms``: ``preprocess`` then ``rasterize``, no gradient;
+- ``t_e2e_fwd_ms``: ``preprocess_packed`` then ``rasterize``, no
+  gradient;
 - ``t_e2e_fwd_bwd_ms`` and ``rays_per_s_fwd_bwd``: ``cli/bench.py::
   measure``'s step, the loss ``sum(out · ones)`` and gradients to means,
-  scales, quats, opacities and colours, chained as ``a − 1e-12·g``.
+  log-scales, quats, opacity logits and colours, chained as
+  ``a − 1e-12·g``.
 
 Every stage is timed by ``cli/bench.py::timed_loop``: ``WARMUP`` untimed
 calls, then ``--iters`` between two CUDA events. ``num_pairs`` counts the
@@ -60,7 +63,7 @@ from ..ops.rasterize.api import (bin_preprocessed, pack_entries, rasterize,
 from ..ops.rasterize.common import DENTRY_F
 from ..ops.rasterize.kernel_bwd import rasterize_bwd
 from ..ops.rasterize.kernel_fwd import rasterize_fwd
-from ..ops.rasterize.preprocess import preprocess
+from ..ops.rasterize.preprocess import preprocess_packed
 from ..utils.bench_scenes import make_trained_like_scene
 from .bench import (bench_camera, kernel_launches, measure, power_limit_w,
                     timed_loop)
@@ -76,15 +79,16 @@ def bench_one(n: int, width: int, height: int, iters: int,
     scene = make_trained_like_scene(n)
     means, scales, quats, opac, rgb = (torch.as_tensor(x, device=device)
                                        for x in scene)
+    scaling, logit = torch.log(scales), torch.logit(opac)[:, None]
     cam = bench_camera(width, height, device)
 
     def stage_ms(fn):
         return timed_loop(lambda _: fn(), None, iters, device) * 1e3
 
     def pre_of(m):
-        return preprocess(m, scales, quats, opac, cam.world_view,
-                          cam.full_proj, cam.campos, width, height,
-                          colors=rgb)
+        return preprocess_packed(m, scaling, quats, logit, cam.world_view,
+                                 cam.full_proj, cam.campos, width, height,
+                                 colors=rgb)
 
     rec = {"n_gaussians": n, "width": width, "height": height}
     with torch.no_grad():

@@ -22,7 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-KERNELS = ("rasterize_fwd", "rasterize_bwd", "gather_rows")
+KERNELS = ("rasterize_fwd", "rasterize_bwd", "gather_rows", "preprocess_fwd",
+           "preprocess_bwd")
 HOST_LIBS = ("jpeg_entropy",)
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"

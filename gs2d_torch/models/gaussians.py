@@ -51,27 +51,6 @@ class GaussianState:
                                              device=xyz.device))
 
 
-def activated(params: GaussianParams):
-    """Returns (xyz, scales, quats_raw, opacity, shs) in activated form.
-
-    Quats are passed raw — preprocess normalizes them (as the reference's
-    F.normalize rotation activation)."""
-    scales = torch.exp(params.scaling)
-    opacity = torch.sigmoid(params.opacity)[:, 0]
-    shs = torch.cat([params.features_dc, params.features_rest], dim=1)
-    return params.xyz, scales, params.rotation, opacity, shs
-
-
-def sh_degree_mask(active_degree: int, max_degree: int,
-                   device="cuda") -> torch.Tensor:
-    """(K, 1) multiplier zeroing SH coefficients above the active degree
-    (the reference's active_sh_degree ramp, train.py:61-62)."""
-    K = num_sh_coeffs(max_degree)
-    deg = torch.floor(torch.sqrt(torch.arange(K, dtype=torch.float32,
-                                              device=device)))
-    return (deg <= active_degree).to(torch.float32)[:, None]
-
-
 def init_from_pcd(points: np.ndarray, colors: np.ndarray,
                   max_sh_degree: int = 3,
                   init_scales: Optional[np.ndarray] = None, seed: int = 0,

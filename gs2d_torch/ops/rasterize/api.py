@@ -6,9 +6,12 @@ slot lists are as long as the scene needs. The autograd boundary
 the tiled compositing only: its forward is K1 (``rasterize_fwd``), its
 backward K2 (``rasterize_bwd``) followed by the deterministic reduction
 of the per-slot gradient rows to per-Gaussian rows
-(``reduce_slot_grads``). Everything around it (preprocess, packing,
-untiling, the bridge) is plain torch under autograd. On CPU tensors the
-kernels' plain versions run; on CUDA tensors the kernels, or an error.
+(``reduce_slot_grads``). Its records are ``pack_entries(pre)``: the
+record ``preprocess_packed`` made (whose own Function carries the
+gradient on to the parameters), or, for fields made or edited elsewhere,
+the fields packed under autograd. Untiling and the bridge are plain torch
+under autograd. On CPU tensors the kernels' plain versions run; on CUDA
+tensors the kernels, or an error.
 """
 
 from __future__ import annotations
@@ -20,20 +23,7 @@ from .binning import BinningOut, bin_gaussians
 from .common import DENTRY_F, NUM_OUT, TILE_H, TILE_W, cdiv
 from .kernel_bwd import rasterize_bwd
 from .kernel_fwd import rasterize_fwd
-from .preprocess import PreprocessOut
-
-
-def pack_entries(pre: PreprocessOut) -> torch.Tensor:
-    """Per-Gaussian kernel record, layout per common.py FLD_*: (N, 24).
-
-    A row with any non-finite value is zeroed: its p2 is then 0, so the
-    kernels skip it and its gradient is zero
-    (``gs2d_tpu/ops/rasterize/api.py:347-348``)."""
-    packed = torch.cat(
-        [pre.A, pre.B, pre.C, pre.c2, pre.center2d, pre.opacity[:, None],
-         pre.rgb, pre.normal, pre.noise], dim=-1)
-    finite = torch.isfinite(packed).all(dim=1, keepdim=True)
-    return torch.where(finite, packed, torch.zeros_like(packed))
+from .preprocess import PreprocessOut, pack_entries
 
 
 def untile(out_tiles: torch.Tensor, width: int, height: int) -> torch.Tensor:

@@ -11,7 +11,8 @@ from the JAX package). Contracts mirrored from the reference 2DGS code
   untransposed into preprocess().
 - Projection: OpenGL-style frustum with z_sign=+1 and the reference's
   depth remap rows, so clip-space w equals camera-space z.
-- ndc→pixel: x_pix = x_ndc * W/2 + (W-1)/2 (half-pixel-centered).
+- ndc→pixel: x_pix = x_ndc * W/2 + (W-1)/2 (half-pixel-centered),
+  written out on the device by ``ops/rasterize/preprocess.py::world_to_pix``.
 
 All functions are host-side NumPy; cameras move the results to the device.
 """
@@ -60,28 +61,3 @@ def fov2focal(fov: float, pixels: float) -> float:
 
 def focal2fov(focal: float, pixels: float) -> float:
     return 2 * math.atan(pixels / (2 * focal))
-
-
-def ndc_to_pix_matrix(width: int, height: int) -> np.ndarray:
-    """4x4 (row-vector form) mapping NDC homogeneous coords to pixel coords.
-
-    Matches the matrix built inline at
-    the reference's ``gaussian_renderer/__init__.py:69-73`` (transposed
-    there): x_pix = x_ndc·W/2 + w·(W−1)/2, w passthrough. The z row here
-    is identity (NOT the reference's (far−near, near) remap) — harmless
-    because both implementations drop it (preprocess.py keeps columns
-    [0, 1, 3] only); consume z from the homography's c2 column instead.
-    """
-    W, H = float(width), float(height)
-    M = np.array(
-        [
-            [W / 2, 0, 0, (W - 1) / 2],
-            [0, H / 2, 0, (H - 1) / 2],
-            [0, 0, 1.0, 0.0],
-            [0, 0, 0, 1],
-        ],
-        dtype=np.float32,
-    )
-    return M.T  # row-vector form
-
-

@@ -50,7 +50,7 @@ def shift_viewport(pre: PreprocessOut, y0) -> PreprocessOut:
     shift = torch.tensor([0.0, y0], dtype=pre.center2d.dtype,
                          device=pre.center2d.device)
     return pre._replace(A=pre.A + y0 * pre.C,
-                        center2d=pre.center2d - shift)
+                        center2d=pre.center2d - shift, packed=None)
 
 
 def rasterize_band(pre: PreprocessOut, width: int, height: int, y0: int,

@@ -17,10 +17,10 @@ from typing import Optional
 
 import torch
 
-from ..models.gaussians import GaussianState, activated, sh_degree_mask
+from ..models.gaussians import GaussianState
 from ..ops.depth_utils import depth_to_normal
 from ..ops.rasterize.api import rasterize
-from ..ops.rasterize.preprocess import PreprocessOut, preprocess
+from ..ops.rasterize.preprocess import PreprocessOut, preprocess_packed
 from ..parallel.data_parallel import rasterize_sharded
 from ..parallel.gaussian_parallel import gather_records, has_gauss_axis
 from ..scene.cameras import Camera
@@ -32,23 +32,25 @@ def prepare(camera: Camera, state: GaussianState, *, max_sh_degree: int = 3,
             override_color: Optional[torch.Tensor] = None,
             noise: Optional[torch.Tensor] = None,
             screen_offsets: Optional[torch.Tensor] = None) -> PreprocessOut:
-    """Activate the state and run the per-Gaussian preprocess."""
-    xyz, scales, quats, opacity, shs = activated(state.params)
+    """The per-Gaussian preprocess of the raw state at its active SH
+    degree (``preprocess_packed``: one kernel each way on the card); the
+    result carries K1's record as ``packed``."""
+    p = state.params
+    sh = {}
     if override_color is None:
-        kmask = sh_degree_mask(state.active_sh_degree, max_sh_degree,
-                               device=xyz.device)
-        shs = shs * kmask
-    return preprocess(
-        xyz, scales, quats, opacity,
-        camera.world_view, camera.full_proj, camera.campos,
-        camera.width, camera.height,
-        sh_degree=max_sh_degree,
-        shs=None if override_color is not None else shs,
-        colors=override_color,
-        scale_modifier=scaling_modifier,
-        screen_offsets=screen_offsets,
-        noise=noise,
-    )
+        K = p.features_rest.shape[1] + 1
+        if K != (max_sh_degree + 1) ** 2:
+            raise ValueError(f"the state holds {K} SH coefficients a "
+                             f"surfel, max_sh_degree {max_sh_degree} "
+                             f"{(max_sh_degree + 1) ** 2}")
+        sh = {"features_dc": p.features_dc,
+              "features_rest": p.features_rest,
+              "sh_degree": min(state.active_sh_degree, max_sh_degree)}
+    return preprocess_packed(
+        p.xyz, p.scaling, p.rotation, p.opacity, camera.world_view,
+        camera.full_proj, camera.campos, camera.width, camera.height,
+        colors=override_color, noise=noise, screen_offsets=screen_offsets,
+        scale_modifier=scaling_modifier, **sh)
 
 
 def bridge(camera: Camera, pre: PreprocessOut, out: torch.Tensor, aux: dict,

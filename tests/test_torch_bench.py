@@ -69,7 +69,9 @@ def test_bench_line_on_the_cpu_has_the_jax_keys():
     assert rec["vs_baseline"] == rec["value"] / 1000
     # on the CPU no kernel runs: the wrappers take their plain versions
     assert rec["kernel_launches"] == {"rasterize_fwd": 0,
-                                      "rasterize_bwd": 0, "gather_rows": 0}
+                                      "rasterize_bwd": 0, "gather_rows": 0,
+                                      "preprocess_fwd": 0,
+                                      "preprocess_bwd": 0}
 
 
 def test_bench_without_a_card_reports_an_error():

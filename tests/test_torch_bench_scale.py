@@ -105,7 +105,9 @@ def test_scale_records_have_the_jax_keys(run):
         # on the CPU no kernel runs: the wrappers take their plain versions
         assert r["kernel_launches"] == {"rasterize_fwd": 0,
                                         "rasterize_bwd": 0,
-                                        "gather_rows": 0}
+                                        "gather_rows": 0,
+                                        "preprocess_fwd": 0,
+                                        "preprocess_bwd": 0}
 
 
 @pytest.mark.parametrize("i", range(len(NS)))

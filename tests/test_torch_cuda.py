@@ -364,12 +364,15 @@ def test_spans_on_the_card(cuda, tmp_path):
                        "raster.composite_fwd", "render.bridge",
                        "step.losses", "step.backward",
                        "raster.composite_bwd", "raster.reduce",
-                       "step.update")}
+                       "render.prepare_bwd", "step.update")}
     trace.write(str(tmp_path / "spans.json"))
     recs = json.loads((tmp_path / "spans.json").read_text())["records"]
     parent = {r["name"]: recs[r["parent"]]["name"] for r in recs
               if r["parent"] is not None}
     assert parent["raster.composite_bwd"] == "step.backward"
+    assert parent["render.prepare_bwd"] == "step.backward"
+    assert s["counts"]["preprocess.kernel"] == 1
+    assert "sync" not in s["spans"]["render.prepare"]["counts"]
     assert parent["raster.reduce"] == "raster.composite_bwd"
     for name, v in s["spans"].items():
         assert v["device_s"] > 0, name
@@ -866,3 +869,175 @@ def test_sharded_checkpoint_in_an_nccl_group(cuda, tmp_path):
                 assert getattr(a, f).device.type == dev.type
                 assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
         assert torch.equal(st.denom.cpu(), state.denom.cpu())
+
+
+# --- the preprocess kernels (csrc/preprocess_fwd.cu, preprocess_bwd.cu) ---
+
+_PRE_FIELDS = {"A": slice(0, 3), "B": slice(3, 6), "C": slice(6, 9),
+               "c2": slice(9, 12), "center2d": slice(12, 14),
+               "opacity": slice(14, 15), "rgb": slice(15, 18),
+               "normal": slice(18, 21), "noise": slice(21, 24)}
+_PRE_LEAVES = ("xyz", "scaling", "rotation", "opacity", "features_dc",
+               "features_rest", "colors", "noise", "screen_offsets")
+
+
+def _pre_inputs(dev, mode, n=4000, seed=0):
+    """Raw parameters of a small cloud and a camera for one mode:
+    (max degree or None for colours, active degree, offsets and noise,
+    scale modifier, spread, rows forced non-finite)."""
+    deg, active, extra, smod, spread, bad = {
+        "colors": (None, 0, True, 1.0, 1.0, ()),
+        "sh0": (0, 0, False, 1.0, 1.0, ()),
+        "sh1": (1, 1, False, 1.0, 1.0, ()),
+        "sh2": (2, 2, True, 1.0, 1.0, ()),
+        "sh3": (3, 3, True, 1.0, 1.0, ()),
+        "sh4": (4, 4, False, 1.0, 1.0, ()),
+        "sh3_active1": (3, 1, False, 1.0, 1.0, ()),
+        "sh3_modifier": (3, 3, True, 0.7, 1.0, ()),
+        "sh3_wide": (3, 2, True, 1.0, 6.0, ()),
+        "sh3_nonfinite": (3, 3, True, 1.0, 1.0, (3, 17)),
+    }[mode]
+    rng = np.random.default_rng(seed)
+    W, H = 160, 96
+    fovx = math.radians(60.0)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * H / W)
+    cam = make_camera(np.eye(3), np.array([0, 0, 4.0]), fovx, fovy, W, H,
+                      device=dev)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    p = {"xyz": t(rng.uniform(-spread, spread, (n, 3))),
+         "scaling": t(np.log(rng.uniform(0.02, 0.25, (n, 2)))),
+         "rotation": t(rng.normal(size=(n, 4))),
+         "opacity": t(rng.normal(size=(n, 1)) * 2.0)}
+    if deg is None:
+        p["colors"] = t(rng.random((n, 3)))
+    else:
+        p["features_dc"] = t(rng.normal(size=(n, 1, 3)))
+        p["features_rest"] = t(rng.normal(size=(n, (deg + 1) ** 2 - 1, 3))
+                               * 0.3)
+    if extra:
+        p["noise"] = t(rng.normal(size=(n, 3)))
+        p["screen_offsets"] = t(rng.normal(size=(n, 2)))
+    for k, row in enumerate(bad):
+        p["noise"][row, 1] = math.inf
+        if k:
+            p["features_rest"][row, 2, 0] = math.inf
+    return p, cam, {"sh_degree": active, "scale_modifier": smod}
+
+
+def _pre_args(p, cam):
+    return ([p.get(f) for f in _PRE_LEAVES]
+            + [cam.world_view, cam.full_proj, cam.campos, cam.width,
+               cam.height])
+
+
+def _pre_compare(p, cam, kw, cot_seed=1):
+    """The kernels against their plain versions, both on the card:
+    visible and radii identical; every record field, depth, extent and
+    rho2max within 1e-6 of the field's largest magnitude; every gradient
+    within 1e-5 of the leaf's largest magnitude. Returns the largest
+    errors."""
+    from gs2d_torch.ops.rasterize import preprocess as pp
+    args = _pre_args(p, cam)
+    got = pp.preprocess_fwd(*args, **kw)
+    want = pp.preprocess_fwd_reference(*args, **kw)
+    assert torch.equal(got[3], want[3]), "radii"
+    assert torch.equal(got[4], want[4]), "visible"
+    err = {}
+    for name, sl in _PRE_FIELDS.items():
+        a, b = got[0][:, sl], want[0][:, sl]
+        err[name] = float((a - b).abs().max()
+                          / b.abs().max().clamp(min=1e-30))
+    for name, k in (("depth", 1), ("extent", 2), ("rho2max", 5)):
+        a, b = got[k], want[k]
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a)), name
+        err[name] = float((a[fin] - b[fin]).abs().max()
+                          / b[fin].abs().max().clamp(min=1e-30))
+    assert max(err.values()) <= 1e-6, err
+    cot = torch.randn(got[0].shape, device=got[0].device,
+                      generator=torch.Generator(got[0].device).manual_seed(
+                          cot_seed))
+    g_k = pp.preprocess_bwd(cot, *args, **kw)
+    g_p = pp.preprocess_bwd_reference(cot, *args, **kw)
+    gerr = {}
+    for name, a, b in zip(_PRE_LEAVES, g_k, g_p):
+        assert (a is None) == (b is None), name
+        if a is None or not b.numel():
+            continue
+        assert torch.isfinite(a).all(), name
+        gerr[name] = float((a - b).abs().max()
+                           / b.abs().max().clamp(min=1e-30))
+    assert max(gerr.values()) <= 1e-5, gerr
+    return err, gerr
+
+
+@pytest.mark.parametrize("mode", ["colors", "sh0", "sh1", "sh2", "sh3",
+                                  "sh4", "sh3_active1", "sh3_modifier",
+                                  "sh3_wide", "sh3_nonfinite"])
+def test_preprocess_kernels_match_plain_versions(cuda, mode):
+    from gs2d_torch.ops.rasterize import preprocess as pp
+    p, cam, kw = _pre_inputs(cuda, mode)
+    f0, b0 = pp.preprocess_fwd.launches, pp.preprocess_bwd.launches
+    _pre_compare(p, cam, kw)
+    assert pp.preprocess_fwd.launches == f0 + 1
+    assert pp.preprocess_bwd.launches == b0 + 1
+    if mode == "sh3_nonfinite":
+        packed, *aux = pp.preprocess_fwd(*_pre_args(p, cam), **kw)
+        assert (packed[[3, 17]] == 0).all() and not aux[3][[3, 17]].any()
+        g = pp.preprocess_bwd(torch.ones_like(packed), *_pre_args(p, cam),
+                              **kw)
+        for x in g:
+            if x is not None:
+                assert (x[[3, 17]] == 0).all()
+
+
+def test_preprocess_kernels_at_the_outdoor_scene(cuda):
+    """3.0M surfels of the benchmark's outdoor scene, from its first test
+    view: the kernels against their plain versions."""
+    import json as _json
+    from pathlib import Path
+    from perfbench import scene as scenes
+    root = Path(__file__).resolve().parents[1]
+    cfg = _json.loads((root / "perfbench" / "configs"
+                       / "m360-outdoor.json").read_text())
+    p = scenes.make_params(cfg, 20261018, cuda)
+    assert p["xyz"].shape[0] == 3_000_000
+    rig = scenes.make_rig(cfg)
+    v = rig.views[rig.test[0]]
+    cam = make_camera(v.R, v.t, v.fovx, v.fovy, v.width, v.height,
+                      device=cuda)
+    p["screen_offsets"] = torch.zeros((3_000_000, 2), device=cuda)
+    _pre_compare(p, cam, {"sh_degree": 3})
+
+
+def test_render_and_step_go_through_the_preprocess_kernels(cuda):
+    """One render launches the forward kernel once and counts
+    ``preprocess.kernel`` once; one train step launches each kernel
+    once; the render's preprocess makes no host sync."""
+    from gs2d_torch.ops.rasterize import preprocess as pp
+    from gs2d_torch.utils import trace
+    cam, state = _state(cuda)
+    gt = torch.rand((3, cam.height, cam.width), device=cuda)
+    bg = torch.zeros(3, device=cuda)
+    step = make_train_step(OptimizationParams(), device=cuda)
+    ts = TrainState(gaussians=state, opt=init_adam(state.params))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for what in ("render", "step"):
+        f0, b0 = pp.preprocess_fwd.launches, pp.preprocess_bwd.launches
+        trace.reset()
+        with torch.profiler.profile(activities=acts):
+            if what == "render":
+                with torch.no_grad():
+                    render(cam, state, bg, device=cuda)
+            else:
+                step(ts, cam, gt, 8000, bg)
+        torch.cuda.synchronize()
+        s = trace.summary()
+        assert s["counts"]["preprocess.kernel"] == 1, what
+        assert pp.preprocess_fwd.launches == f0 + 1, what
+        assert pp.preprocess_bwd.launches == b0 + (what == "step"), what
+        assert "sync" not in s["spans"]["render.prepare"]["counts"], what

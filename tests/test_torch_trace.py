@@ -47,11 +47,12 @@ PARENTS = {
     "step.losses": "loop.step", "step.backward": "loop.step",
     "raster.composite_bwd": "step.backward",
     "raster.reduce": "raster.composite_bwd",
+    "render.prepare_bwd": "step.backward",
     "step.update": "loop.step",
 }
 # the host's waits for the device in one step, by the span they fall in
-SYNCS = {"loop.gt_upload": 1, "render.prepare": 2, "raster.bin": 4,
-         "render.bridge": 3, "raster.reduce": 2, "step.update": 1}
+SYNCS = {"loop.gt_upload": 1, "raster.bin": 4, "render.bridge": 3,
+         "raster.reduce": 2, "step.update": 1}
 
 
 class _Scene:
@@ -160,7 +161,8 @@ RENDER_METRICS = ("preprocess_dev_ms.render", "bridge_dev_ms.render",
 TRAIN_METRICS = ("preprocess_dev_ms.train", "losses_dev_ms.train",
                  "backward_self_dev_ms.train", "reduce_dev_ms.train",
                  "update_dev_ms.train", "step_host_ms.train",
-                 "gt_upload_ms.train", "host_syncs_per_it.train")
+                 "gt_upload_ms.train", "host_syncs_per_it.train",
+                 "preprocess_bwd_dev_ms.train")
 
 RUN = """
 import json, sys
@@ -178,7 +180,7 @@ def test_render_cell_reports_the_render_metrics():
     """A tiny CPU render cell, traced: each new ``.render`` metric is in
     the result line, and the ``render`` span ran once per view of the
     window."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     p = subprocess.run([sys.executable, "-c", RUN], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-4000:]
@@ -190,7 +192,7 @@ def test_render_cell_reports_the_render_metrics():
     assert not any(m in res["metrics"] for m in TRAIN_METRICS)
     assert summary["spans"]["render"]["calls"] == res["attempted"] == 25
     assert res["metrics"]["host_syncs_per_view.render"]["value"] \
-        == summary["counts"]["sync"] / 25 == 9
+        == summary["counts"]["sync"] / 25 == 7
 
 
 def _span(device_s, device_self_s, host_s, calls=20):
@@ -205,6 +207,7 @@ SUMMARY = {
               "render.prepare": _span(0.2, 0.2, 0.05),
               "step.losses": _span(0.06, 0.06, 0.01),
               "step.backward": _span(0.9, 0.7, 0.3),
+              "render.prepare_bwd": _span(0.04, 0.04, 0.02),
               "raster.reduce": _span(0.08, 0.08, 0.001),
               "step.update": _span(0.24, 0.24, 0.02)},
     "counts": {"sync": 62, "gt.upload": 20},
@@ -212,7 +215,8 @@ SUMMARY = {
 EXPECTED = {"preprocess_dev_ms.train": 10.0, "losses_dev_ms.train": 3.0,
             "backward_self_dev_ms.train": 35.0, "reduce_dev_ms.train": 4.0,
             "update_dev_ms.train": 12.0, "step_host_ms.train": 95.0,
-            "gt_upload_ms.train": 20.0, "host_syncs_per_it.train": 3.1}
+            "gt_upload_ms.train": 20.0, "host_syncs_per_it.train": 3.1,
+            "preprocess_bwd_dev_ms.train": 2.0}
 
 
 @pytest.mark.parametrize("metric", TRAIN_METRICS)
