@@ -55,15 +55,15 @@ def run(r: Run) -> Outcome:
     start = rng.randrange(V)
     checked = sorted(rng.sample(range(V), int(t["checked_views"])))
     bg = torch.zeros(3, dtype=torch.float32, device=dev)
+    ratio = float(cfg["optimization"]["depth_ratio"])
     if r.mode == "control":
         return _control(r, params, views, [(start + k) % V for k in checked],
-                        bg)
+                        bg, ratio)
 
     state = GaussianState(params=GaussianParams(**params),
                           active_sh_degree=int(cfg["sh_degree"]))
     cams = [make_camera(v.R, v.t, v.fovx, v.fovy, v.width, v.height,
                         device=dev) for v in views]
-    ratio = float(cfg["optimization"]["depth_ratio"])
 
     def one(i: int) -> dict:
         with torch.no_grad():
@@ -144,22 +144,25 @@ def run(r: Run) -> Outcome:
     r.log("render: reference")
     numbers = {n: 0.0 for n in NUMBER.values()}
     for i, prog in kept.items():
-        _gaps(numbers, prog, raster.render(params, views[i], bg))
+        _gaps(numbers, prog, raster.render(params, views[i], bg,
+                                           depth_ratio=ratio))
     r.log("render: reference done")
     return Outcome({"render_views_s": k / span,
                     "render_ms_p95": 1e3 * p95(lat)}, k, 0, peak, numbers,
                    wall_open - r.t_start, traced)
 
 
-def _control(r: Run, params, views, checked, bg) -> Outcome:
+def _control(r: Run, params, views, checked, bg, ratio) -> Outcome:
     """The reference in bfloat16 in the program's place."""
     reference_mode()
     numbers = {n: 0.0 for n in NUMBER.values()}
     low = {f: x.to(torch.bfloat16) for f, x in params.items()}
     for i in checked:
-        got = raster.render(low, views[i], bg.to(torch.bfloat16))
+        got = raster.render(low, views[i], bg.to(torch.bfloat16),
+                            depth_ratio=ratio)
         got["render"] = torch.clamp(got["render"], 0, 1)
-        _gaps(numbers, got, raster.render(params, views[i], bg))
+        _gaps(numbers, got, raster.render(params, views[i], bg,
+                                          depth_ratio=ratio))
     return Outcome({}, 0, 0, r.peak_bytes(), numbers, 0.0)
 
 

@@ -16,6 +16,14 @@ steps' losses, and the training views record which view the loop took.
 After the window the program's state is freed and the reference follows
 the checked steps from the same checkpoint, on the views of the
 reference's own camera order.
+
+The configuration's ``optimization`` block holds ``resume_iteration``,
+``gt_cache_budget`` and ``depth_ratio``, and may name the distortion
+loss's weight ``lambda_dist``, the one loss weight that 2DGS's published
+protocols set (DTU 1000, Tanks and Temples 100 or 10): it goes to the
+program's ``OptimizationParams`` and to the reference's options alike,
+and where it is not named both keep the default 0. Any other key stops
+the run at set-up.
 """
 
 from __future__ import annotations
@@ -40,6 +48,19 @@ OPT = {"position_lr_init": 0.00016, "position_lr_final": 0.0000016,
        "position_lr_max_steps": 30_000, "feature_lr": 0.0025,
        "opacity_lr": 0.05, "scaling_lr": 0.005, "rotation_lr": 0.001,
        "lambda_dssim": 0.2, "lambda_normal": 0.05, "lambda_dist": 0.0}
+LOSS_WEIGHTS = ("lambda_dist",)
+SETTINGS = ("resume_iteration", "gt_cache_budget", "depth_ratio")
+
+
+def loss_weights(cfg: dict) -> dict:
+    """The loss weights that the configuration's ``optimization`` block
+    names; a key that is neither a weight nor a setting raises."""
+    block = cfg["optimization"]
+    unknown = sorted(set(block) - set(LOSS_WEIGHTS) - set(SETTINGS))
+    if unknown:
+        raise ValueError(f"unknown optimization keys {unknown} in "
+                         f"{cfg.get('name', 'the configuration')}")
+    return {k: float(block[k]) for k in LOSS_WEIGHTS if k in block}
 
 
 class _View:
@@ -160,9 +181,10 @@ def _rows(d: torch.Tensor) -> torch.Tensor:
 
 
 def _reference_steps(r: Run, p0, mu0, nu0, views, order, gt, extent,
-                     first, steps, dtype):
-    """The reference's ``steps`` steps from the checkpoint → (losses,
-    first gradient, parameters after the last step), on the host."""
+                     first, steps, dtype, opt: dict, depth_ratio: float):
+    """The reference's ``steps`` steps from the checkpoint with the
+    options ``opt`` → (losses, first gradient, parameters after the last
+    step), on the host."""
     dev = r.device
     p = {f: p0[f].to(dev, dtype) for f in FIELDS}
     mu = {f: mu0[f].to(dev, dtype) for f in FIELDS}
@@ -172,12 +194,13 @@ def _reference_steps(r: Run, p0, mu0, nu0, views, order, gt, extent,
     for k in range(steps):
         it = first + k + 1
         v = order[k]
-        loss, g = ref.gradient(p, views[v], gt[v].to(dev, dtype), it, OPT, bg)
+        loss, g = ref.gradient(p, views[v], gt[v].to(dev, dtype), it, opt,
+                               bg, depth_ratio=depth_ratio)
         losses.append(float(loss))
         if k == 0:
             g1 = {f: g[f].float().cpu() for f in FIELDS}
         p, mu, nu = ref.adam(p, g, mu, nu, first + k + 1,
-                             ref.learning_rates(it, extent, OPT))
+                             ref.learning_rates(it, extent, opt))
     return losses, g1, {f: p[f].float().cpu() for f in FIELDS}
 
 
@@ -189,6 +212,9 @@ def run(r: Run) -> Outcome:
     from gs2d_torch.ops.rasterize import api
 
     cfg, dev = r.cfg, r.device
+    weights = loss_weights(cfg)
+    opt_ref = {**OPT, **weights}
+    ratio = float(cfg["optimization"]["depth_ratio"])
     first = int(cfg["optimization"]["resume_iteration"])
     if first < 3000 or first < 1000 * int(cfg["sh_degree"]):
         raise ValueError("the reference resumes past the SH ramp only")
@@ -207,7 +233,8 @@ def run(r: Run) -> Outcome:
     checked = int(r.traffic["checked_steps"])
     order = ref.camera_order(r.seed, len(views), checked)
     if r.mode == "control":
-        return _control(r, p0, mu0, nu0, views, order, gt, extent, first)
+        return _control(r, p0, mu0, nu0, views, order, gt, extent, first,
+                        opt_ref, ratio)
 
     buf = _checkpoint(p0, mu0, nu0, first, extent)
     taken = []
@@ -250,12 +277,11 @@ def run(r: Run) -> Outcome:
         with tracing.span("bin_preprocessed"):
             return orig_bin(*a, **k)
 
-    opt = OptimizationParams()
+    opt = OptimizationParams(**weights)
     rt = RuntimeParams(seed=r.seed,
                        gt_cache_budget=int(cfg["optimization"]
                                            ["gt_cache_budget"]))
-    pipe = PipelineParams(depth_ratio=float(cfg["optimization"]
-                                            ["depth_ratio"]))
+    pipe = PipelineParams(depth_ratio=ratio)
     r.log("train: the loop starts")
     with patched(loop, "make_train_step", make_step), \
             patched(step_mod, "compute_losses",
@@ -295,7 +321,7 @@ def run(r: Run) -> Outcome:
     order = ref.camera_order(r.seed, len(views), len(taken))
     ref_losses, g1, p_ref = _reference_steps(
         r, p0, mu0, nu0, views, order, gt, extent, first, checked,
-        torch.float32)
+        torch.float32, opt_ref, ratio)
     r.log("train: reference done")
     g1_prog = {f: (watch.mu1[f].double() - ref.BETA1 * mu0[f].double())
                / (1 - ref.BETA1) for f in FIELDS}
@@ -369,16 +395,19 @@ def _compare(r: Run, lp, lr, gp, gr, dp, dr) -> dict:
             "change_gap": change_gap}
 
 
-def _control(r, p0, mu0, nu0, views, order, gt, extent, first) -> Outcome:
+def _control(r, p0, mu0, nu0, views, order, gt, extent, first, opt,
+             ratio) -> Outcome:
     """The reference in bfloat16 in the program's place."""
     reference_mode()
     steps = int(r.traffic["checked_steps"])
     r.log("train: reference, float32")
     lr, gr, pr = _reference_steps(r, p0, mu0, nu0, views, order, gt,
-                                  extent, first, steps, torch.float32)
+                                  extent, first, steps, torch.float32, opt,
+                                  ratio)
     r.log("train: reference, bfloat16")
     lb, gb, pb = _reference_steps(r, p0, mu0, nu0, views, order, gt,
-                                  extent, first, steps, torch.bfloat16)
+                                  extent, first, steps, torch.bfloat16, opt,
+                                  ratio)
     numbers = _compare(r, lb, lr, gb, gr,
                        {f: pb[f] - p0[f] for f in FIELDS},
                        {f: pr[f] - p0[f] for f in FIELDS})

@@ -8,7 +8,10 @@ the Gaussian is evaluated at min(u² + v², 2·d²) (the screen-space
 low-pass filter, without gradient), alpha = min(0.99, o·exp(−ρ/2)),
 composited front to back while alpha ≥ 1/255 and the intersection depth
 is past the near plane 0.2, until the transmittance would fall under
-1e-4. A surfel composites only inside the 16 × 32 pixel tiles that its
+1e-4. The median depth is the intersection depth of the last surfel
+composited while the transmittance in front of it is still above 0.5,
+and 0 where there is none; its gradient goes to that surfel's depth
+alone. A surfel composites only inside the 16 × 32 pixel tiles that its
 screen-space box (the cutoff ellipse's bounding box) touches. The
 distortion channel is Σ_{i<j} w_i w_j (m_i − m_j)² with
 m = 100/99.8 · (1 − 0.2/z).
@@ -63,7 +66,8 @@ CH_NORMAL = slice(5, 8)
 CH_DIST = 8
 CH_M1 = 9               # Σ w·m
 CH_M2 = 10              # Σ w·m²
-NUM_CH = 11
+CH_MEDIAN = 11          # the median depth
+NUM_CH = 12
 # the per-surfel fields the compositing reads, in this order
 F_A, F_B, F_C, F_C2 = slice(0, 3), slice(3, 6), slice(6, 9), slice(9, 12)
 F_CENTER, F_OPACITY = slice(12, 14), 14
@@ -344,6 +348,19 @@ def _geometry(f: torch.Tensor, valid: torch.Tensor, ix, iy, inside):
     return ok, alpha, z
 
 
+def _median(z: torch.Tensor, live: torch.Tensor, t_before: torch.Tensor
+            ) -> torch.Tensor:
+    """The median depth of each pixel, (nc, npx): the depth ``z`` of the
+    last live surfel whose transmittance in front is above 0.5, by a
+    gather, so that its gradient reaches that surfel's depth alone; 0
+    where there is none."""
+    slot = torch.arange(z.shape[1], dtype=torch.int32,
+                        device=z.device)[None, :, None]
+    last = torch.amax(torch.where(live & (t_before > 0.5), slot, -1), dim=1)
+    med = torch.gather(z, 1, last.clamp(min=0).long()[:, None, :])[:, 0]
+    return torch.where(last >= 0, med, torch.zeros_like(med))
+
+
 def _composite(f: torch.Tensor, valid: torch.Tensor, ix, iy, inside):
     """One block → (nc, NUM_CH, npx) channels."""
     ok, alpha, z = _geometry(f, valid, ix, iy, inside)
@@ -357,12 +374,14 @@ def _composite(f: torch.Tensor, valid: torch.Tensor, ix, iy, inside):
     t_before = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]],
                          dim=1)
     w = a * t_before
-    del a, t_before
+    del a
     t_final = torch.amin(torch.where(keep, t_incl, torch.ones_like(t_incl)),
                          dim=1)
     del t_incl, keep
     z = torch.where(live, z, torch.ones_like(z))
     out = [None] * NUM_CH
+    out[CH_MEDIAN] = _median(z, live, t_before)
+    del t_before
     rgb = torch.einsum("tlp,tlc->tcp", w, f[:, :, F_RGB])
     nrm = torch.einsum("tlp,tlc->tcp", w, f[:, :, F_NORMAL])
     out[CH_RGB] = list(rgb.unbind(1))
@@ -469,8 +488,9 @@ def composite(fields: torch.Tensor, cells: Cells, width: int, height: int,
 def bridge(ch: torch.Tensor, mats: Matrices, width: int, height: int,
            bg: torch.Tensor, depth_ratio: float = 0.0) -> dict:
     """Compositing channels → the renderer's outputs: rgb over the
-    background, alpha, the world-space normal, the surface depth, the
-    normal of the depth map (times alpha) and the distortion."""
+    background, alpha, the world-space normal, the surface depth
+    ((1 − r)·expected + r·median, r the depth ratio), the normal of the
+    depth map (times alpha) and the distortion."""
     alpha = ch[CH_ALPHA:CH_ALPHA + 1]
     rgb = ch[CH_RGB] + (1.0 - alpha) * bg[:, None, None]
     Rv = mats.world_view[:3, :3]
@@ -479,7 +499,8 @@ def bridge(ch: torch.Tensor, mats: Matrices, width: int, height: int,
                              / torch.clamp(alpha, min=1e-12))
     depth = torch.where(alpha > 0, depth, torch.zeros_like(depth))
     if depth_ratio != 0.0:
-        raise NotImplementedError("the reference keeps no median depth")
+        median = torch.nan_to_num(ch[CH_MEDIAN:CH_MEDIAN + 1])
+        depth = depth * (1.0 - depth_ratio) + depth_ratio * median
     surf_normal = depth_normal(mats, depth[0], width, height) \
         .permute(2, 0, 1) * alpha.detach()
     return {"render": rgb, "rend_alpha": alpha, "rend_normal": n_world,
@@ -513,15 +534,17 @@ def depth_normal(mats: Matrices, depth: torch.Tensor, width: int,
 
 
 def render(params: dict, view: View, bg: torch.Tensor, *,
-           block: int = 1 << 26) -> dict:
-    """The renderer's outputs for ``view``, without gradient."""
+           depth_ratio: float = 0.0, block: int = 1 << 26) -> dict:
+    """The renderer's outputs for ``view``, without gradient, with the
+    median depth beside them."""
     with torch.no_grad():
         mats = matrices(view, params["xyz"].device, params["xyz"].dtype)
         s = setup(params, mats, view.width, view.height)
         cells = cell_lists(s, view.width, view.height)
         ch = composite(s.fields, cells, view.width, view.height,
                        block=block)
-        out = bridge(ch, mats, view.width, view.height, bg)
+        out = bridge(ch, mats, view.width, view.height, bg, depth_ratio)
+        out["depth_median"] = ch[CH_MEDIAN:CH_MEDIAN + 1]
         # the size of the two terms whose difference the distortion is
         out["dist_scale"] = ch[CH_ALPHA:CH_ALPHA + 1] * ch[CH_M2:CH_M2 + 1] \
             + ch[CH_M1:CH_M1 + 1] ** 2

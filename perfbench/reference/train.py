@@ -97,8 +97,9 @@ def loss_of(out: dict, gt: torch.Tensor, iteration: int, opt: dict):
 
 def gradient(params: dict, view: raster.View, gt: torch.Tensor,
              iteration: int, opt: dict, bg: torch.Tensor, *,
-             block: int = 1 << 26):
-    """(loss, {field: gradient}) of one step at ``params``."""
+             depth_ratio: float = 0.0, block: int = 1 << 26):
+    """(loss, {field: gradient}) of one step at ``params``, the surface
+    depth mixed from the expected and median depths by ``depth_ratio``."""
     dev = params["xyz"].device
     leaves = {f: params[f].detach().requires_grad_() for f in FIELDS}
     mats = raster.matrices(view, dev, params["xyz"].dtype)
@@ -110,7 +111,8 @@ def gradient(params: dict, view: raster.View, gt: torch.Tensor,
     ch = raster.composite(fields.detach(), cells, W, H, block=block)
     ch.requires_grad_()
     with torch.enable_grad():
-        loss = loss_of(raster.bridge(ch, mats, W, H, bg), gt, iteration, opt)
+        loss = loss_of(raster.bridge(ch, mats, W, H, bg, depth_ratio), gt,
+                       iteration, opt)
         (g_ch,) = torch.autograd.grad(loss, ch)
     raster.composite(fields, cells, W, H, grad_out=g_ch, block=block)
     torch.autograd.backward(s.fields, fields.grad)

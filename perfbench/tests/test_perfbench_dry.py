@@ -26,7 +26,8 @@ def test_dry_run_prints_the_contracts_line(capsys, workload):
 
 
 @pytest.mark.parametrize("workload", ["m360-outdoor.train",
-                                      "m360-indoor.render"])
+                                      "m360-indoor.render",
+                                      "dtu-object.train"])
 def test_traced_dry_run_reads_the_trace(capsys, workload):
     rc, res, err = dry(capsys, workload, "--trace", "1")
     assert rc == 0, err
