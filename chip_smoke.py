@@ -3098,16 +3098,17 @@ SD15_COUNTS = {"unet": 859_532_484, "vae": 83_653_863,
 
 class EditRenders:
     """Keeps the image and ``rend_noise`` of every edit render of the IG2G
-    CLI (``cli.train_ig2g.render``, which the training step does not call)
+    loop (``train.loop.render``, which the training step does not call)
     and the arguments of the latest K1 launch inside one, so K1 with a
     non-zero noise channel can be held."""
 
-    def __init__(self, cli, api):
-        self.cli, self.api, self.args, self.inside = cli, api, None, False
+    def __init__(self, module, api):
+        self.module, self.api, self.args, self.inside = module, api, None, \
+            False
         self.outs = []
 
     def __enter__(self):
-        self.render, self.k1 = self.cli.render, self.api.rasterize_fwd
+        self.render, self.k1 = self.module.render, self.api.rasterize_fwd
 
         def render(*a, **kw):
             self.inside = True
@@ -3122,11 +3123,11 @@ class EditRenders:
             if self.inside:
                 self.args = a
             return self.k1(*a)
-        self.cli.render, self.api.rasterize_fwd = render, k1
+        self.module.render, self.api.rasterize_fwd = render, k1
         return self
 
     def __exit__(self, *exc):
-        self.cli.render, self.api.rasterize_fwd = self.render, self.k1
+        self.module.render, self.api.rasterize_fwd = self.render, self.k1
 
 
 def held_close(got, ref, what, rtol=TINY_RTOL, atol=TINY_ATOL) -> float:
@@ -3203,35 +3204,34 @@ def sd_tiny_card_vs_cpu() -> dict:
 
 def write_sd_snapshot(root: Path) -> dict:
     """A seeded SD-1.5 InstructPix2Pix snapshot at full width in diffusers'
-    layout, F16 through the port's safetensors writer, at init_params'
-    fan-in scaling (drawn on the card), and a synthetic tokenizer/ (256
-    byte symbols, their </w> forms, the merges of the prompt's words, the
-    two specials). Returns seconds and bytes per file."""
+    layout, F16 through the port's safetensors writer: the modules of
+    ``sd_weights.seeded`` (init_params' fan-in scaling, drawn on the
+    card), and a synthetic tokenizer/ (256 byte symbols, their </w> forms,
+    the merges of the prompt's words, the two specials). Returns seconds
+    (the draw, then each file's write) and bytes per file."""
     import shutil
 
     import torch
 
-    from gs2d_torch.ig2g import clip_text, sdnet, vae
+    from gs2d_torch.ig2g import sd_weights
     from gs2d_torch.ig2g.tokenizer import write_synthetic_tokenizer
     from gs2d_torch.utils import safetensors
     shutil.rmtree(root, ignore_errors=True)
-    g = torch.Generator(device="cuda").manual_seed(SD_SEED)
-    out = {}
-    for sub, fname, spec in (
-            ("unet", "diffusion_pytorch_model.safetensors",
-             sdnet.unet_param_shapes(sdnet.SD15_IP2P_UNET)),
-            ("vae", "diffusion_pytorch_model.safetensors",
-             vae.vae_param_shapes(vae.SD15_VAE)),
-            ("text_encoder", "model.safetensors",
-             clip_text.clip_param_shapes(clip_text.SD15_CLIP))):
+    t0 = time.perf_counter()
+    modules = sd_weights.seeded(SD_SEED, torch.float16, "cuda")
+    out = {"draw_s": time.perf_counter() - t0}
+    for (sub, fname), module in zip(
+            (("unet", "diffusion_pytorch_model.safetensors"),
+             ("vae", "diffusion_pytorch_model.safetensors"),
+             ("text_encoder", "model.safetensors")), modules):
         t0 = time.perf_counter()
-        p = sdnet.init_params(spec, g, device="cuda", dtype=torch.float16)
         (root / sub).mkdir(parents=True)
         path = root / sub / fname
-        safetensors.save_file(p, str(path), metadata={"format": "pt"})
-        del p
+        safetensors.save_file(module.state_dict(), str(path),
+                              metadata={"format": "pt"})
         out[sub] = {"write_s": time.perf_counter() - t0,
                     "bytes": path.stat().st_size}
+    del modules
     write_synthetic_tokenizer(str(root / "tokenizer"),
                               IG2G_PROMPT.split())
     torch.cuda.empty_cache()
@@ -3239,8 +3239,8 @@ def write_sd_snapshot(root: Path) -> dict:
 
 
 def sd_full_width(report, root: Path):
-    """The snapshot through ``sd_weights`` onto the card (parameter counts
-    gated); one full-width UNet call (16x16 latent, batch 3) on the card
+    """The snapshot through ``sd_weights`` onto the card, the UNet and VAE
+    asked for in float32 (parameter counts gated); one full-width UNet call (16x16 latent, batch 3) on the card
     against the same weights on the CPU within FULL_REL, and the same call
     with TF32 on past it (the control); the card's times
     at the IG2G CLI's shapes (a 960x540 view: latent 67x120, batch 3):
@@ -3254,8 +3254,10 @@ def sd_full_width(report, root: Path):
     from gs2d_torch.ig2g.sdnet import FreeUParams
     from gs2d_torch.ig2g.vae import vae_decode, vae_encode_moments
     t0 = time.perf_counter()
-    unet = sd_weights.load_unet(str(root), device="cuda")
-    vae_m = sd_weights.load_vae(str(root), device="cuda")
+    unet = sd_weights.load_unet(str(root), device="cuda",
+                                dtype=torch.float32)
+    vae_m = sd_weights.load_vae(str(root), device="cuda",
+                                dtype=torch.float32)
     enc = PromptEncoder(str(root), device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -3280,7 +3282,8 @@ def sd_full_width(report, root: Path):
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = flags
         t1 = time.perf_counter()
-        cpu_unet = sd_weights.load_unet(str(root), device="cpu")
+        cpu_unet = sd_weights.load_unet(str(root), device="cpu",
+                                        dtype=torch.float32)
         cpu = cpu_unet(x, 500, ctx)
         cpu_s = time.perf_counter() - t1
         del cpu_unet
@@ -3378,6 +3381,7 @@ def ig2g_phase(report, dpath):
     import gs2d_torch.train.step as step_mod
     from gs2d_torch.cli import train_ig2g
     from gs2d_torch.models.io import load_ply
+    from gs2d_torch.train import loop as loop_mod
     t_phase = time.perf_counter()
     report["tiny_err"] = sd_tiny_card_vs_cpu()
     print("ig2g tiny configs, card against CPU, max abs err "
@@ -3394,7 +3398,7 @@ def ig2g_phase(report, dpath):
     zero_counts()
     try:
         t0 = time.perf_counter()
-        with EditRenders(train_ig2g, api) as renders, \
+        with EditRenders(loop_mod, api) as renders, \
                 EveryCall(ops_mod, "resize_bilinear") as resizes, \
                 StepTimer(step_mod) as steps, \
                 LastCall(api, "rasterize_bwd") as k2:

@@ -14,9 +14,13 @@ ground truth (the Iterative Dataset Update of InstructNeRF2NeRF), until
 ``ip2p_iter`` edits per camera are done. The xyz learning rate restarts at
 ``--ip2p_start_iter``; the model is saved at the last iteration.
 
+The loop is ``train/loop.py::train`` with its ``Editor`` hook; this CLI
+builds the editor and the prompt's embeddings and calls it.
+
 ``--editor torch`` is the SD-1.5 InstructPix2Pix of ``gs2d_torch.ig2g``,
 with the UNet, VAE, text tower and tokenizer read from the diffusers
-snapshot at ``$GS2D_SD_WEIGHTS`` (without one it raises); ``--editor
+snapshot at ``$GS2D_SD_WEIGHTS`` (without one it raises), each network
+in the dtype its snapshot stores; ``--editor
 stub`` runs the whole loop without weights. ``--save_edited`` writes each
 edit as a PNG under ``<model>/edited``. ``main(argv)`` returns the camera
 order, the edits and the losses.
@@ -25,13 +29,11 @@ order, the edits and the losses.
 from __future__ import annotations
 
 import os
-import random
 import time
 import uuid
 
 from ..config import (ModelParams, OptimizationParams, PipelineParams,
                       RuntimeParams, save_cfg_args)
-from ..render.renderer import render
 from .train import OPT_FLAGS, build_parser
 
 
@@ -72,12 +74,10 @@ def main(argv=None) -> dict:
     import torch
 
     from ..ig2g.ip2p import InstructPix2Pix, IP2PParams
-    from ..ig2g.ops import resize_bilinear
-    from ..models.densify import densify_and_prune, reset_opacity
     from ..scene.images import encode_png
     from ..scene.scene import Scene
-    from ..train.optim import init_adam
-    from ..train.step import TrainState, make_train_step
+    from ..train import loop
+    from ..train.loop import Editor
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -130,121 +130,54 @@ def main(argv=None) -> dict:
         text_embeddings = PromptEncoder(ip2p.backend.root,
                                         device=device).encode(args.text_prompt)
 
-    scene = Scene(model, seed=rt.seed, device=device)
-    cams = scene.get_train_cameras()
-    if not cams:
-        raise ValueError("no training cameras")
-    # each camera's ground truth on the device; an edit replaces it
-    edited = [None] * len(cams)
-    bg = torch.tensor([1.0] * 3 if model.white_background else [0.0] * 3,
-                      dtype=torch.float32, device=device)
-    step_fn = make_train_step(opt, max_sh_degree=model.sh_degree,
-                              spatial_lr_scale=scene.cameras_extent,
-                              depth_ratio=pipe.depth_ratio, device=device)
-    ts = TrainState(gaussians=scene.gaussians,
-                    opt=init_adam(scene.gaussians.params))
-    densify_gen = torch.Generator(device=device).manual_seed(rt.seed)
-    noise_gen = torch.Generator(device=device).manual_seed(rt.seed + 1)
-
-    rng = random.Random(rt.seed)
-    stack = []
-    ip2p_iteration = 0
-    edit_every = max(int(args.ip2p_cycle_iter / max(len(cams), 1)), 1)
     result = {"model_path": args.model_path, "order": [], "edits": [],
               "losses": []}
     losses = []
     t_start = time.time()
 
-    for iteration in range(1, opt.iterations + 1):
-        if not stack:
-            stack = list(range(len(cams)))
-        ci = stack.pop(rng.randrange(len(stack)))
-        cam_data = cams[ci]
-        result["order"].append(ci)
-        if edited[ci] is None:
-            edited[ci] = torch.as_tensor(cam_data.image, dtype=torch.float32,
-                                         device=device)
-
-        # the periodic dataset edit (reference :232-304)
-        if (iteration > args.ip2p_start_iter
-                and (edit_every == 1 or iteration % edit_every == 1)
-                and ip2p_iteration < args.ip2p_iter * len(cams)):
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                gnoise = torch.randn(
-                    (ts.gaussians.params.xyz.shape[0], 3),
-                    generator=noise_gen, device=device)
-                pkg = render(cam_data.camera, ts.gaussians, bg,
-                             max_sh_degree=model.sh_degree, noise=gnoise,
-                             depth_ratio=pipe.depth_ratio, device=device)
-                rendered = torch.clamp(pkg["render"], 0, 1)[None]
-                original = torch.as_tensor(
-                    cam_data.image, dtype=torch.float32, device=device)[None]
-                out = ip2p.edit_image(text_embeddings, rendered, original,
-                                      pkg["rend_noise"][None])
-                # the VAE's x8 round trip returns sides rounded up to a
-                # multiple of 8: back to the render's size (reference
-                # train_ig2g.py:293-297)
-                if out.shape[2:] != rendered.shape[2:]:
-                    out = resize_bilinear(out, rendered.shape[2:])
-            edited[ci] = out[0]
-            ip2p_iteration += 1
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            result["edits"].append({"iteration": iteration, "camera": ci,
-                                    "image_name": cam_data.image_name,
-                                    "s": time.perf_counter() - t0})
-            if args.save_edited:
-                d = os.path.join(args.model_path, "edited")
-                os.makedirs(d, exist_ok=True)
-                encode_png(
-                    os.path.join(d, f"{iteration}_{cam_data.image_name}.png"),
-                    (out[0].permute(1, 2, 0).cpu().numpy() * 255)
-                    .astype(np.uint8))
-            if not args.quiet:
-                print(f"[ITER {iteration}] edit {ip2p_iteration} of "
-                      f"{cam_data.image_name} in "
-                      f"{result['edits'][-1]['s']:.2f} s", flush=True)
-
-        # the xyz LR schedule restarts at the edit phase's start
-        # (reference train_ig2g.py:205-206)
-        lr_it = (iteration - args.ip2p_start_iter
-                 if iteration > args.ip2p_start_iter else iteration)
-        ts, metrics = step_fn(ts, cam_data.camera, edited[ci], iteration,
-                              bg, lr_iteration=lr_it)
+    def on_step(iteration, cam_idx, metrics):
+        result["order"].append(cam_idx)
         losses.append(metrics["total_loss"])
+        if iteration % 10:
+            return
+        loss, total = torch.stack([metrics["loss"],
+                                   metrics["total_loss"]]).tolist()
+        points = int(metrics["num_points"])
+        n_edits = len(result["edits"])
+        if wandb_run is not None:
+            wandb_run.log({"train/loss": loss, "train/total_loss": total,
+                           "train/points": points, "train/edits": n_edits},
+                          step=iteration)
+        if not args.quiet and iteration % 100 == 0:
+            print(f"[ITER {iteration}] loss {loss:.5f} points {points} "
+                  f"edits {n_edits} {time.time() - t_start:.1f} s",
+                  flush=True)
 
-        if iteration < opt.densify_until_iter:
-            if (iteration > opt.densify_from_iter
-                    and iteration % opt.densification_interval == 0):
-                size_thr = 20.0 if iteration > opt.opacity_reset_interval \
-                    else 0.0
-                gs_new, opt_new, _ = densify_and_prune(
-                    ts.gaussians, ts.opt, opt.densify_grad_threshold,
-                    opt.opacity_cull, scene.cameras_extent, size_thr,
-                    opt.percent_dense, generator=densify_gen)
-                ts = TrainState(gaussians=gs_new, opt=opt_new)
-            if (iteration % opt.opacity_reset_interval == 0
-                    or (model.white_background
-                        and iteration == opt.densify_from_iter)):
-                gs_new, opt_new = reset_opacity(ts.gaussians, ts.opt)
-                ts = TrainState(gaussians=gs_new, opt=opt_new)
+    def on_edit(iteration, cam_idx, out, seconds):
+        name = cams[cam_idx].image_name
+        result["edits"].append({"iteration": iteration, "camera": cam_idx,
+                                "image_name": name, "s": seconds})
+        if args.save_edited:
+            d = os.path.join(args.model_path, "edited")
+            os.makedirs(d, exist_ok=True)
+            encode_png(os.path.join(d, f"{iteration}_{name}.png"),
+                       (out[0].permute(1, 2, 0).cpu().numpy() * 255)
+                       .astype(np.uint8))
+        if not args.quiet:
+            print(f"[ITER {iteration}] edit {len(result['edits'])} of "
+                  f"{name} in {seconds:.2f} s", flush=True)
 
-        if iteration % 10 == 0:
-            loss, total = torch.stack([metrics["loss"],
-                                       metrics["total_loss"]]).tolist()
-            points = int(metrics["num_points"])
-            if wandb_run is not None:
-                wandb_run.log({"train/loss": loss, "train/total_loss": total,
-                               "train/points": points,
-                               "train/edits": ip2p_iteration},
-                              step=iteration)
-            if not args.quiet and iteration % 100 == 0:
-                print(f"[ITER {iteration}] loss {loss:.5f} points {points} "
-                      f"edits {ip2p_iteration} "
-                      f"{time.time() - t_start:.1f} s", flush=True)
-        if iteration == opt.iterations:
-            scene.save(iteration, ts.gaussians)
+    scene = Scene(model, seed=rt.seed, device=device)
+    cams = scene.get_train_cameras()
+    editor = Editor(
+        edit=lambda rendered, original, noise: ip2p.edit_image(
+            text_embeddings, rendered, original, noise),
+        start_iter=args.ip2p_start_iter, cycle_iter=args.ip2p_cycle_iter,
+        iters=args.ip2p_iter, on_edit=on_edit)
+    ts, _ = loop.train(model, opt, pipe, rt, scene=scene,
+                       test_iterations=(),
+                       save_iterations=(opt.iterations,),
+                       step_fn=on_step, editor=editor, device=device)
 
     result["losses"] = torch.stack(losses).tolist() if losses else []
     result["points"] = int(ts.gaussians.params.xyz.shape[0])

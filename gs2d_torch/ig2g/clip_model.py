@@ -223,7 +223,8 @@ def load_clip(snapshot: str, device="cuda") -> CLIPModel:
     if not os.path.exists(path):
         raise FileNotFoundError(f"CLIP weights not found at {path}")
     return carry_params(CLIPModel(cfg, device="meta"),
-                        safetensors.load_file(path), "clip", device)
+                        safetensors.load_file(path), "clip", device,
+                        torch.float32)
 
 
 def write_random_snapshot(root: str, cfg: CLIPConfig,

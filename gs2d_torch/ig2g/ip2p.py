@@ -23,6 +23,16 @@ Backends:
 Every random draw — T, the Gaussian noise, the VAE posterior's sample —
 goes through one ``Draws`` object: by default a ``torch.Generator`` seeded
 from ``seed`` on the editor's device.
+
+The SD backend's networks run in the dtype of their weights (float16 for
+a snapshot stored as F16, the published precision); the latents, the
+DDIM arithmetic and the guidance stay float32, as the networks' outputs
+are handed back in float32. A non-finite output of the UNet or the VAE
+raises ``FloatingPointError`` when the edit's decode ends: each output is
+checked on the device, and the host reads the verdict once an edit.
+Spans (``utils/trace.py``): ``ig2g.unet`` around each UNet call (counter
+``ig2g.unet_call``), ``ig2g.vae_encode`` around each encode and
+``ig2g.vae_decode`` around the decode.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from .ops import (DDIMSchedule, cfg_combine, cfg_combine_rendered,
                   noise_calibration, normalize_latent_noise)
 
@@ -152,25 +163,55 @@ class TorchSDBackend:
             vae = vae or sd_weights.load_vae(root, vae_cfg or SD15_VAE,
                                              device=self.device)
         self.unet, self.vae, self.freeu = unet, vae, freeu
+        self._finite = None      # every output checked since the last decode
+
+    def _note(self, x: torch.Tensor) -> torch.Tensor:
+        ok = torch.isfinite(x).all()
+        self._finite = ok if self._finite is None else self._finite & ok
+        return x
+
+    def _moments(self, img):
+        from .vae import vae_encode_moments
+        with trace.span("ig2g.vae_encode"):
+            mean, logvar = vae_encode_moments(self.vae, img * 2.0 - 1.0)
+            self._note(mean)
+            self._note(logvar)
+        return mean, logvar
 
     @torch.no_grad()
     def encode(self, img, draws: Draws):
         """Posterior sample (the reference's imgs_to_latent), unscaled."""
-        from .vae import vae_encode_moments, vae_sample
-        mean, logvar = vae_encode_moments(self.vae, img * 2.0 - 1.0)
+        from .vae import vae_sample
+        mean, logvar = self._moments(img)
         return vae_sample(mean, logvar, draws.posterior(mean.shape))
 
     @torch.no_grad()
     def encode_mode(self, img):
         """Posterior mode (the reference's prepare_image_latents)."""
-        from .vae import vae_encode_moments
-        return vae_encode_moments(self.vae, img * 2.0 - 1.0)[0]
+        return self._moments(img)[0]
 
     @torch.no_grad()
     def decode(self, lat):
+        """The image in [0, 1]; raises if an output of the UNet or the VAE
+        since the last decode was not finite."""
         from .vae import SD_LATENT_SCALE, vae_decode
-        img = vae_decode(self.vae, lat / SD_LATENT_SCALE)
+        with trace.span("ig2g.vae_decode"):
+            img = self._note(vae_decode(self.vae, lat / SD_LATENT_SCALE))
+        ok, self._finite = self._finite, None
+        trace.count("sync")
+        if not bool(ok):
+            raise FloatingPointError(
+                "an output of the UNet or the VAE in this edit is not "
+                "finite")
         return torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
+
+    def _unet(self, fn, *args, **kw):
+        with trace.span("ig2g.unet"):
+            trace.count("ig2g.unet_call")
+            out = fn(self.unet, *args, **kw)
+            if torch.is_tensor(out):
+                out = self._note(out.float())
+        return out
 
     def make_eps_predictor(self, schedule, image_cond_latents,
                            text_embeddings):
@@ -180,7 +221,7 @@ class TorchSDBackend:
         @torch.no_grad()
         def predict(latents, t):
             x = torch.cat([torch.cat([latents] * 3, dim=0), cond3], dim=1)
-            eps = unet_apply(self.unet, x, int(t), text_embeddings,
+            eps = self._unet(unet_apply, x, int(t), text_embeddings,
                              freeu=self.freeu)
             return eps[0:1], eps[1:2], eps[2:3]
         return predict
@@ -197,12 +238,12 @@ class TorchSDBackend:
         def predict_fused(latents_backbone, latents_skips, t):
             xs = torch.cat([torch.cat([latents_skips] * 3, dim=0), cond3],
                            dim=1)
-            skips2 = unet_apply_intermediate(self.unet, xs, int(t),
-                                             text_embeddings)
+            skips2 = self._unet(unet_apply_intermediate, xs, int(t),
+                                text_embeddings)
             xb = torch.cat([torch.cat([latents_backbone] * 3, dim=0), cond3],
                            dim=1)
-            eps = unet_apply_fused(self.unet, xb, skips2, float(lam), int(t),
-                                   text_embeddings, freeu=self.freeu)
+            eps = self._unet(unet_apply_fused, xb, skips2, float(lam),
+                             int(t), text_embeddings, freeu=self.freeu)
             return eps[0:1], eps[1:2], eps[2:3]
         return predict_fused
 

@@ -16,9 +16,18 @@ diffusers does:
   (``F.interpolate(size=..., mode="nearest")``), so latent sides that are
   not a multiple of 2^(n_blocks−1) work; the JAX UNet always doubles, and
   its concatenation fails there;
-* attention is ``matmul`` → ``softmax`` → ``matmul`` over blocks of query
-  rows, so the score tensor stays under ``ATTN_SCORE_BYTES`` (a 960×540
-  view has 8,160 tokens at the first level: 6.4 GB of scores at batch 3).
+* attention is ``scaled_dot_product_attention`` (diffusers'
+  ``AttnProcessor2_0``), whose fused kernels never hold the score tensor
+  (a 1557×1038 view has 25,026 tokens at the first level) and in half
+  precision keep the scores and the softmax in float32, so they do not
+  overflow.
+
+The network runs in the dtype of its weights, as diffusers'
+``from_pretrained(torch_dtype=...)`` does: the sample and the text states
+are cast to it on entry, the sinusoidal timestep embedding is computed in
+float32 and cast, and FreeU's Fourier filter runs in float32. GroupNorm
+and LayerNorm take their statistics in float32 in every dtype (PyTorch's
+kernels accumulate in float32).
 """
 
 from __future__ import annotations
@@ -30,9 +39,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-ATTN_SCORE_BYTES = 1 << 30
-
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
@@ -75,9 +81,8 @@ class FreeUParams:
 # --------------------------------------------------------------------------
 
 def attention(q, k, v, heads: int, mask=None, scale=None) -> torch.Tensor:
-    """softmax(q·kᵀ/√dh + mask)·v per head, over blocks of query rows so
-    that one block's scores stay under ATTN_SCORE_BYTES. q: (B, T, C);
-    k, v: (B, S, C) → (B, T, C)."""
+    """softmax(q·kᵀ/scale + mask)·v per head, scale √dh by default.
+    q: (B, T, C); k, v: (B, S, C) → (B, T, C)."""
     B, T, C = q.shape
     S = k.shape[1]
     dh = C // heads
@@ -85,14 +90,9 @@ def attention(q, k, v, heads: int, mask=None, scale=None) -> torch.Tensor:
     q = q.reshape(B, T, heads, dh).transpose(1, 2)
     k = k.reshape(B, S, heads, dh).transpose(1, 2)
     v = v.reshape(B, S, heads, dh).transpose(1, 2)
-    rows = max(1, min(T, ATTN_SCORE_BYTES // (B * heads * S * 4)))
-    out = torch.empty((B, heads, T, dh), dtype=q.dtype, device=q.device)
-    kt = k.transpose(-1, -2)
-    for r0 in range(0, T, rows):
-        a = torch.matmul(q[:, :, r0:r0 + rows], kt) / scale
-        if mask is not None:
-            a = a + mask[r0:r0 + rows]
-        out[:, :, r0:r0 + rows] = torch.matmul(torch.softmax(a, dim=-1), v)
+    out = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=None if mask is None else mask.to(q.dtype),
+        scale=1.0 / scale)
     return out.transpose(1, 2).reshape(B, T, C)
 
 
@@ -240,14 +240,18 @@ def timestep_embedding(t, dim, max_period=10000.0):
 
 def _fourier_filter(x, threshold, scale):
     """FreeU skip filtering: scale the centred low-frequency
-    (2·threshold)² box of the 2-D spectrum by ``scale``."""
+    (2·threshold)² box of the 2-D spectrum by ``scale``, in float32 (as
+    diffusers' ``fourier_filter``; cuFFT takes half precision at sides of
+    powers of two only) and back to ``x``'s dtype."""
     B, C, H, W = x.shape
+    dtype, x = x.dtype, x.float()
     f = torch.fft.fftshift(torch.fft.fft2(x), dim=(-2, -1))
     crow, ccol = H // 2, W // 2
     mask = torch.ones((H, W), dtype=torch.float32, device=x.device)
     mask[crow - threshold:crow + threshold,
          ccol - threshold:ccol + threshold] = scale
-    return torch.fft.ifft2(torch.fft.ifftshift(f * mask, dim=(-2, -1))).real
+    return torch.fft.ifft2(torch.fft.ifftshift(
+        f * mask, dim=(-2, -1))).real.to(dtype)
 
 
 def _apply_freeu(freeu: Optional[FreeUParams], stage, h, skip):
@@ -318,11 +322,15 @@ class UNet2DCondition(nn.Module):
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1,
                                   device=device)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
     def _time_embed(self, t, batch, device):
         t = torch.as_tensor(t, dtype=torch.float32, device=device)
         t = torch.broadcast_to(t, (batch,))
         return self.time_embedding(timestep_embedding(
-            t, self.cfg.block_out_channels[0]))
+            t, self.cfg.block_out_channels[0]).to(self.dtype))
 
     def _down_path(self, sample, temb, ctx):
         """conv_in + down blocks → (bottom sample, skip stack)."""
@@ -371,7 +379,9 @@ class UNet2DCondition(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(sample)))
 
     def forward(self, sample, t, ctx, freeu: Optional[FreeUParams] = None):
-        """Eps prediction. sample: (B, in_ch, H, W); ctx: (B, S, D)."""
+        """Eps prediction in the weights' dtype. sample: (B, in_ch, H, W);
+        ctx: (B, S, D)."""
+        sample, ctx = sample.to(self.dtype), ctx.to(self.dtype)
         temb = self._time_embed(t, sample.shape[0], sample.device)
         sample, skips = self._down_path(sample, temb, ctx)
         sample = self._mid(sample, temb, ctx)
@@ -380,6 +390,7 @@ class UNet2DCondition(nn.Module):
 
     def intermediate(self, sample, t, ctx):
         """The fork's forward_intermediate: the down path's skip stack."""
+        sample, ctx = sample.to(self.dtype), ctx.to(self.dtype)
         temb = self._time_embed(t, sample.shape[0], sample.device)
         return self._down_path(sample, temb, ctx)[1]
 
@@ -387,6 +398,7 @@ class UNet2DCondition(nn.Module):
               freeu: Optional[FreeUParams] = None):
         """The fork's forward_fused: a full pass whose up-path skips are
         ``own·(1−λ) + skips2·λ``."""
+        sample, ctx = sample.to(self.dtype), ctx.to(self.dtype)
         temb = self._time_embed(t, sample.shape[0], sample.device)
         sample, skips = self._down_path(sample, temb, ctx)
         sample = self._mid(sample, temb, ctx)

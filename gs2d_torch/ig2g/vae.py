@@ -6,6 +6,11 @@ the mode for the conditioning, latents scaled by 0.18215). Modules named
 as diffusers' state dict; GroupNorm eps 1e-6 throughout; each stride-2
 downsample pads (0, 1, 0, 1) first, as diffusers' VAE does, so a 540-row
 image gives 68 latent rows and decodes to 544.
+
+The autoencoder runs in the dtype of its weights (``sdnet.py`` says how
+attention and the norms behave in float16): ``vae_encode_moments`` and
+``vae_decode`` cast their input to it and hand back float32, which the
+DDIM arithmetic on the latents keeps.
 """
 
 from __future__ import annotations
@@ -156,9 +161,11 @@ class AutoencoderKL(nn.Module):
 
 
 def vae_encode_moments(vae: AutoencoderKL, img: torch.Tensor):
-    """img (B, 3, H, W) in [-1, 1] → (mean, logvar), each (B, 4, h, w)."""
-    moments = vae.quant_conv(vae.encoder(img))
-    return moments.chunk(2, dim=1)
+    """img (B, 3, H, W) in [-1, 1] → (mean, logvar), each (B, 4, h, w),
+    float32."""
+    dtype = vae.quant_conv.weight.dtype
+    moments = vae.quant_conv(vae.encoder(img.to(dtype)))
+    return moments.float().chunk(2, dim=1)
 
 
 def vae_sample(mean, logvar, noise):
@@ -175,8 +182,10 @@ def vae_encode(vae: AutoencoderKL, img, noise=None):
 
 
 def vae_decode(vae: AutoencoderKL, lat: torch.Tensor) -> torch.Tensor:
-    """lat (B, 4, h, w) unscaled → image (B, 3, 8h, 8w) in [-1, 1]."""
-    return vae.decoder(vae.post_quant_conv(lat))
+    """lat (B, 4, h, w) unscaled → image (B, 3, 8h, 8w) in [-1, 1],
+    float32."""
+    dtype = vae.post_quant_conv.weight.dtype
+    return vae.decoder(vae.post_quant_conv(lat.to(dtype))).float()
 
 
 def vae_param_shapes(cfg: VAEConfig) -> dict:

@@ -7,8 +7,9 @@ the ``safetensors`` package, and the SD weight loader
   by the port: names, shapes, dtypes and every bit equal, for F32, F16 and
   BF16; the port's metadata read by the package.
 - A TINY snapshot written by the port loads through ``load_unet``,
-  ``load_vae`` and ``load_text_encoder`` bit for bit (F16 on disk becomes
-  the F32 of the same values), and through the JAX package's loader; a
+  ``load_vae`` and ``load_text_encoder`` bit for bit in the dtype stored
+  (F16 on disk loads as float16, and as the F32 of the same values when
+  float32 is asked for), and through the JAX package's loader; a
   wrong shape or a missing name raises naming it, as
   tests/test_sdnet.py:148-190 expects of the JAX loader; without weights
   the SD backend raises naming $GS2D_SD_WEIGHTS.
@@ -128,13 +129,21 @@ def test_loader_on_a_snapshot_the_port_wrote(tmp_path, dtype):
               "text_encoder": TW.load_text_encoder(str(tmp_path),
                                                    TC.TINY_CLIP,
                                                    device="cpu")}
+    as_f32 = {"unet": TW.load_unet(str(tmp_path), T.TINY_UNET, device="cpu",
+                                   dtype=torch.float32),
+              "vae": TW.load_vae(str(tmp_path), TV.TINY_VAE, device="cpu",
+                                 dtype=torch.float32),
+              "text_encoder": TW.load_text_encoder(
+                  str(tmp_path), TC.TINY_CLIP, device="cpu",
+                  dtype=torch.float32)}
     for sub, module in loaded.items():
-        sd = module.state_dict()
+        sd, sd32 = module.state_dict(), as_f32[sub].state_dict()
         assert sorted(sd) == sorted(params[sub])
         for k, v in params[sub].items():
-            want = torch.as_tensor(np.array(v)).to(dtype).float()
-            assert sd[k].dtype == torch.float32
+            want = torch.as_tensor(np.array(v)).to(dtype)
+            assert sd[k].dtype == dtype and sd32[k].dtype == torch.float32
             assert torch.equal(sd[k], want), (sub, k)
+            assert torch.equal(sd32[k], want.float()), (sub, k)
     if dtype == torch.float32:
         from gs2d_tpu.ig2g import sd_weights as JW
         up = JW.load_unet(str(tmp_path), J.TINY_UNET)
